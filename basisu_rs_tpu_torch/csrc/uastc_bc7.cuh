@@ -1,0 +1,581 @@
+// K1 per-block logic: one UASTC 4x4 block -> one BC7 block, specialised per
+// UASTC mode (template <int M>), so every bit offset is a compile-time
+// constant and folds, as the per-mode trace folds them in the JAX package.
+//
+// Port of basisu_rs_tpu/ops/bc7.py (uastc_to_bc7_mode, _mode8_to_bc7, the
+// p-bit searches), ops/uastc_decode.py (decode_fields) and the helpers of
+// ops/bits.py; the plain PyTorch version is basisu_rs_tpu_torch/ops/bc7.py.
+//
+// The same source compiles two ways through the macro shim below:
+//   - nvcc: device functions, tables in __device__ global memory read with
+//     __ldg (pattern-indexed lookups diverge, which __constant__ serialises);
+//   - g++:  host functions and static tables, so the CPU tests can hold this
+//     exact code against the plain version (tests/test_torch_csrc_host.py).
+//
+// Traps this code is written against:
+//   - IEEE f32: fl_div255 and the shared p-bit error round every multiply
+//     and add on its own (fmul_rn/fadd_rn/fsub_rn; nvcc --fmad=false, g++
+//     -ffp-contract=off as a second guard).
+//   - Shift counts >= 32 are undefined in C++: extract/put keep the
+//     reference's `w + 1 < W` bounds, and no shift below can reach 32.
+//   - Words are uint32_t and field arithmetic int32_t, with explicit casts,
+//     so `>>` on a word is always logical.
+#pragma once
+#include <stdint.h>
+
+#if defined(__CUDACC__)
+#define UB_FN __device__ __forceinline__
+#define UB_TABLE __device__ const
+#define UB_LDG(p) __ldg(p)
+#else
+#define UB_FN inline
+#define UB_TABLE static const
+#define UB_LDG(p) (*(p))
+#endif
+
+#include "uastc_tables.cuh"
+
+namespace ub {
+
+// ---- IEEE-single arithmetic, one rounding per operation -------------------
+
+UB_FN float fmul_rn(float a, float b) {
+#if defined(__CUDA_ARCH__)
+  return __fmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+
+UB_FN float fadd_rn(float a, float b) {
+#if defined(__CUDA_ARCH__)
+  return __fadd_rn(a, b);
+#else
+  return a + b;
+#endif
+}
+
+UB_FN float fsub_rn(float a, float b) {
+#if defined(__CUDA_ARCH__)
+  return __fsub_rn(a, b);
+#else
+  return a - b;
+#endif
+}
+
+// fl(x/255) for x in 0..255 without a divide: y0 = x*257*2^-16 is exact,
+// and fl(x/255) = fl(y0 + fl(y0*K)), K = fl(2^-16/(1-2^-16)).
+UB_FN float fl_div255(int32_t x) {
+  const float y0 = fmul_rn(static_cast<float>(x), 0x1.01p-8f);
+  return fadd_rn(y0, fmul_rn(y0, 0x1.0001p-16f));
+}
+
+// ---- bit fields over four little-endian 32-bit words ----------------------
+
+UB_FN uint32_t mask(int count) {
+  return count >= 32 ? 0xFFFFFFFFu : ((1u << count) - 1u);
+}
+
+// Static-offset extract; bits past the block read as zero.
+UB_FN uint32_t extract(const uint32_t (&l)[4], int offset, int count) {
+  if (count == 0) return 0u;
+  const int w = offset >> 5, b = offset & 31;
+  uint32_t val = (w < 4 ? l[w] : 0u) >> b;
+  if (b + count > 32 && w + 1 < 4) val |= l[w + 1] << (32 - b);
+  return val & mask(count);
+}
+
+// One dynamic bit whose word lies in the static bit range [lo_bit, hi_bit).
+UB_FN uint32_t extract_bit_dyn(const uint32_t (&l)[4], uint32_t offset, int lo_bit,
+                               int hi_bit) {
+  const int wlo = lo_bit >> 5, whi = (hi_bit - 1) >> 5;
+  const uint32_t w = offset >> 5;
+  uint32_t v = l[wlo];
+#pragma unroll
+  for (int k = wlo + 1; k <= whi; ++k) v = (w == static_cast<uint32_t>(k)) ? l[k] : v;
+  return (v >> (offset & 31u)) & 1u;
+}
+
+// OR a `count`-bit field into the output words; bits past the end drop.
+UB_FN void put(uint32_t (&o)[4], uint32_t value, int offset, int count) {
+  if (count == 0) return;
+  value &= mask(count);
+  const int w = offset >> 5, b = offset & 31;
+  if (w < 4) o[w] |= value << b;
+  if (b + count > 32 && w + 1 < 4) o[w + 1] |= value >> (32 - b);
+}
+
+// ---- UASTC field decode (ops/uastc_decode.py) -----------------------------
+
+template <int R>
+UB_FN int32_t unquant_endpoint(int32_t tq, int32_t bits) {
+  using RG = BiseRange<R>;
+  if constexpr (RG::trits == 0 && RG::quints == 0) {
+    if constexpr (RG::bits == 8) {
+      return bits;
+    } else {
+      int32_t val = bits << (8 - RG::bits);
+#pragma unroll
+      for (int sh = 8 - 2 * RG::bits; sh > -RG::bits; sh -= RG::bits)
+        val |= sh >= 0 ? bits << sh : bits >> -sh;
+      return val;
+    }
+  } else {
+    return UB_LDG(&UNQUANT_LUT[RG::unquant_base + ((tq << RG::bits) | bits)]);
+  }
+}
+
+template <int M>
+UB_FN void decode_endpoints(const uint32_t (&l)[4], int32_t (&ep)[Mode<M>::endpoint_count]) {
+  using C = Mode<M>;
+  using RG = BiseRange<C::range>;
+  constexpr int E = C::endpoint_count;
+  int32_t tq[E];
+  int ofs = C::ofs_endpoints;
+  if constexpr (RG::trits || RG::quints) {
+    // groups of 3 quints in 7 bits or 5 trits in 8 bits, digits split off
+    // by mul-shift division: floor(g/5) = (g*205)>>10, floor(g/3) = (g*171)>>9
+    constexpr int base = RG::quints ? 5 : 3, per = RG::quints ? 3 : 5;
+    constexpr int gw = RG::quints ? 7 : 8;
+    constexpr int mul = RG::quints ? 205 : 171, sh = RG::quints ? 10 : 9;
+    int k = 0;
+#pragma unroll
+    for (int g = 0; g < (E + per - 1) / per; ++g) {
+      const int members = (E - g * per) < per ? (E - g * per) : per;
+      // partial group widths: quints {1: 3, 2: 5}, trits {1: 2, 2: 4, 3: 5, 4: 7}
+      const int width = members == per ? gw
+                        : RG::quints   ? (members == 1 ? 3 : 5)
+                                       : (members == 1 ? 2 : members == 2 ? 4 : members == 3 ? 5 : 7);
+      int32_t v = static_cast<int32_t>(extract(l, ofs, width));
+      ofs += width;
+#pragma unroll
+      for (int m = 0; m < per; ++m) {
+        if (m < members) {
+          if (m == members - 1) {
+            tq[k++] = v - base * (v >= base ? 1 : 0);
+          } else {
+            const int32_t q = (v * mul) >> sh;
+            tq[k++] = v - q * base;
+            v = q;
+          }
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < E; ++i) tq[i] = 0;
+  }
+#pragma unroll
+  for (int i = 0; i < E; ++i) {
+    const int32_t bits = static_cast<int32_t>(extract(l, ofs + i * RG::bits, RG::bits));
+    ep[i] = unquant_endpoint<C::range>(tq[i], bits);
+  }
+}
+
+// Raw quantized weights in decode order (k = planes*i + plane); anchor
+// texels are stored with one less bit.
+template <int M>
+UB_FN void decode_weights(const uint32_t (&l)[4], int32_t pat,
+                          uint32_t (&w)[16 * Mode<M>::planes]) {
+  using C = Mode<M>;
+  constexpr int wb = C::weight_bits, planes = C::planes, base = C::ofs_weights;
+  if constexpr (!C::multi) {
+    int ofs = base;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int bits_i = i == 0 ? wb - 1 : wb;
+#pragma unroll
+      for (int p = 0; p < planes; ++p) {
+        w[planes * i + p] = extract(l, ofs, bits_i);
+        ofs += bits_i;
+      }
+    }
+  } else {
+    // Multi-subset modes are single-plane.  Texel i's bits lie in the static
+    // window [base + wb*i - maxab_i, base + wb*i + wb), where ab_i is the
+    // pattern's count of anchors before texel i: one static extract and a
+    // small variable shift by (maxab_i - ab_i).
+    static_assert(planes == 1, "multi-subset modes are single-plane");
+    using F = Family<C::fam>;
+    const uint32_t abp = UB_LDG(&FAM_ANCHORS_BEFORE_PACKED[F::base + pat]);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int lo = (F::ab_min_packed >> (2 * i)) & 3, hi = (F::ab_max_packed >> (2 * i)) & 3;
+      const uint32_t ab = lo == hi ? static_cast<uint32_t>(lo) : (abp >> (2 * i)) & 3u;
+      uint32_t ab_next = F::n_anchors;
+      if (i < 15) {
+        const int lo2 = (F::ab_min_packed >> (2 * i + 2)) & 3;
+        const int hi2 = (F::ab_max_packed >> (2 * i + 2)) & 3;
+        ab_next = lo2 == hi2 ? static_cast<uint32_t>(lo2) : (abp >> (2 * i + 2)) & 3u;
+      }
+      const uint32_t wmask = mask(wb) >> (ab_next - ab);  // anchor: one bit less
+      const uint32_t raw = lo == hi ? extract(l, base + wb * i - lo, wb)
+                                    : extract(l, base + wb * i - hi, wb + hi) >> (hi - ab);
+      w[i] = raw & wmask;
+    }
+  }
+}
+
+// ---- BC7 helpers (ops/bc7.py) ---------------------------------------------
+
+// convert_weights_to_bc7's LUTs as closed forms (bc7.rs:377-398)
+template <int UB, int B7>
+UB_FN uint32_t remap_weight(uint32_t w) {
+  if constexpr (UB == B7) return w;
+  else if constexpr (UB == 1 && B7 == 2) return 3u * w;
+  else if constexpr (UB == 2 && B7 == 4) return 5u * w;
+  else if constexpr (UB == 3 && B7 == 4) return 2u * w + (w >= 4u ? 1u : 0u);
+  else {
+    static_assert(UB == 5 && B7 == 4, "no such weight remap");
+    return (w >> 1) - (w == 14u ? 1u : 0u) + (w == 17u ? 1u : 0u);
+  }
+}
+
+// Both p-candidates' quantized endpoint as clamped half-values:
+// q0c = min(floor((e*iscalep + 255)/510), h), q1c = min(floor(e*iscalep/510), h)
+// as mul-shifts (XQ_MULSHIFT in ops/bc7.py).
+template <int TB>
+UB_FN void xq_pair(int32_t e, int32_t& q0c, int32_t& q1c) {
+  constexpr int K1 = TB == 4 ? 1928 : TB == 5 ? 3983 : TB == 6 ? 8096 : TB == 7 ? 16320 : 32768;
+  constexpr int K0 = TB == 4 ? 1928 : TB == 5 ? 3984 : TB == 6 ? 8096 : TB == 7 ? 16320 : 32768;
+  constexpr int B0 = TB == 8 ? 32768 : 32765;
+  constexpr int S = 16;
+  constexpr int h = ((1 << TB) - 1) >> 1;
+  const int32_t a = (e * K0 + B0) >> S, b = (e * K1) >> S;
+  q0c = a < h ? a : h;
+  q1c = b < h ? b : h;
+}
+
+// x = 2*qc + p bit-replicated to 8 bits
+template <int TB>
+UB_FN int32_t scaled_half(int32_t qc, int p) {
+  if constexpr (TB < 8) {
+    int32_t s0 = qc << (9 - TB);
+    if (p) s0 |= 1 << (8 - TB);
+    return s0 | (s0 >> TB);
+  } else {
+    return (qc << 1) | p;
+  }
+}
+
+// Unique p-bits: the reference's f32 error terms are integers < 2^16 here,
+// so the search is exact in int32.
+template <int CC, int CB>
+UB_FN void unique_pbits(int32_t (&lo)[4], int32_t (&hi)[4], uint32_t& plo, uint32_t& phi) {
+  constexpr int TB = CB + 1;
+  int32_t l0[CC], l1[CC], h0[CC], h1[CC];
+  int32_t el0 = 0, el1 = 0, eh0 = 0, eh1 = 0;
+#pragma unroll
+  for (int c = 0; c < CC; ++c) {
+    xq_pair<TB>(lo[c], l0[c], l1[c]);
+    xq_pair<TB>(hi[c], h0[c], h1[c]);
+    const int32_t a0 = scaled_half<TB>(l0[c], 0) - lo[c], a1 = scaled_half<TB>(l1[c], 1) - lo[c];
+    const int32_t b0 = scaled_half<TB>(h0[c], 0) - hi[c], b1 = scaled_half<TB>(h1[c], 1) - hi[c];
+    el0 += a0 * a0;
+    el1 += a1 * a1;
+    eh0 += b0 * b0;
+    eh1 += b1 * b1;
+  }
+  plo = el1 < el0 ? 1u : 0u;
+  phi = eh1 < eh0 ? 1u : 0u;
+#pragma unroll
+  for (int c = 0; c < CC; ++c) {
+    lo[c] = plo ? l1[c] : l0[c];
+    hi[c] = phi ? h1[c] : h0[c];
+  }
+}
+
+// Shared p-bit: the reference's IEEE-f32 error, sum over channels of
+// (fl(s_lo/255) - fl(lo/255))^2 + (fl(s_hi/255) - fl(hi/255))^2, every
+// operation rounded on its own and folded left in channel order.
+template <int CC, int CB>
+UB_FN void shared_pbit(int32_t (&lo)[4], int32_t (&hi)[4], uint32_t& sb) {
+  constexpr int TB = CB + 1;
+  int32_t l0[CC], l1[CC], h0[CC], h1[CC];
+  float err[2];
+#pragma unroll
+  for (int c = 0; c < CC; ++c) {
+    xq_pair<TB>(lo[c], l0[c], l1[c]);
+    xq_pair<TB>(hi[c], h0[c], h1[c]);
+  }
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int c = 0; c < CC; ++c) {
+      const float bl = fsub_rn(fl_div255(scaled_half<TB>(p ? l1[c] : l0[c], p)), fl_div255(lo[c]));
+      const float bh = fsub_rn(fl_div255(scaled_half<TB>(p ? h1[c] : h0[c], p)), fl_div255(hi[c]));
+      const float term = fadd_rn(fmul_rn(bl, bl), fmul_rn(bh, bh));
+      acc = c == 0 ? term : fadd_rn(acc, term);
+    }
+    err[p] = acc;
+  }
+  sb = err[1] < err[0] ? 1u : 0u;
+#pragma unroll
+  for (int c = 0; c < CC; ++c) {
+    lo[c] = sb ? l1[c] : l0[c];
+    hi[c] = sb ? h1[c] : h0[c];
+  }
+}
+
+// (e*mask + 127) / 255 for an NB-bit endpoint as one mul-add-shift
+template <int NB>
+UB_FN int32_t scale_ep(int32_t e) {
+  if constexpr (NB == 8) {
+    return e;
+  } else {
+    constexpr int K = NB == 4 ? 962 : NB == 5 ? 1992 : NB == 6 ? 4048 : 8160;
+    return (e * K + 8156) >> 14;
+  }
+}
+
+// ---- mode 8 (void extent) -> BC7 mode 5 or 6 (bc7.rs:18-58, 312-375) -----
+
+UB_FN void mode8_to_bc7(const uint32_t (&l)[4], uint32_t (&o)[4]) {
+  int32_t c[4];
+  int err0 = 0, err1 = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    c[k] = static_cast<int32_t>(extract(l, 5 + 8 * k, 8));
+    err0 += c[k] == 255;  // mode 6 error at p = 0: only extremes are lossy
+    err1 += c[k] == 0;    // ... at p = 1
+  }
+  if (err0 > 0 && err1 > 0) {
+    // mode 5: 6 mode bits, 2 rotation, 3x7x2 colour, 8x2 alpha, weights 1
+    put(o, 1u << 5, 0, 6);
+    int ofs = 8;
+#pragma unroll
+    for (int k = 0; k < 3; ++k, ofs += 14) put(o, UB_LDG(&BC7_MODE_5_OPTIMAL_PACKED[c[k]]), ofs, 14);
+    put(o, static_cast<uint32_t>(c[3]) * 0x101u, ofs, 16);
+    ofs += 16;
+    put(o, 1u, ofs, 1);
+    ofs += 1;
+#pragma unroll
+    for (int i = 0; i < 15; ++i, ofs += 2) put(o, 1u, ofs, 2);
+  } else {
+    // mode 6: 7 mode bits, 4x7x2 endpoints, 2 p-bits, weights 5
+    const int best_p = err1 < err0 ? 1 : 0;
+    put(o, 1u << 6, 0, 7);
+    int ofs = 7;
+#pragma unroll
+    for (int k = 0; k < 4; ++k, ofs += 14)
+      put(o, UB_LDG(&BC7_MODE_6_OPTIMAL_PACKED[c[k] + 1 - best_p]), ofs, 14);
+    put(o, static_cast<uint32_t>(best_p * 3), ofs, 2);
+    ofs += 2;
+    put(o, 5u, ofs, 3);
+    ofs += 3;
+#pragma unroll
+    for (int i = 0; i < 15; ++i, ofs += 4) put(o, 5u, ofs, 4);
+  }
+}
+
+// ---- the block transcode --------------------------------------------------
+
+// UASTC block (4 words) -> BC7 block (4 words).  Returns the block's error
+// flag: an out-of-range pattern index (the output is still written, from
+// the clamped pattern, exactly as the reference kernels do).
+template <int M>
+UB_FN bool uastc_to_bc7(const uint32_t (&l)[4], uint32_t (&o)[4]) {
+  o[0] = o[1] = o[2] = o[3] = 0u;
+  if constexpr (M == 8) {
+    mode8_to_bc7(l, o);
+    return false;
+  } else {
+    using C = Mode<M>;
+    using B = Bc7Mode<C::bc7>;
+    constexpr int planes = C::planes, nsub = C::subsets;
+    constexpr int cc = B::channels, wb7 = B::weight_bits, nsub7 = B::subset_count;
+
+    int32_t cs = 0;  // component selector
+    if constexpr (planes == 2 && C::format == FORMAT_LA) cs = 3;
+    else if constexpr (C::compsel_bits != 0) cs = static_cast<int32_t>(extract(l, C::ofs_compsel, 2));
+
+    int32_t pat = 0;
+    bool err = false;
+    if constexpr (C::pattern_bits != 0) {
+      const int32_t p = static_cast<int32_t>(extract(l, C::ofs_pattern, C::pattern_bits));
+      err = p >= C::pattern_count;
+      pat = err ? C::pattern_count - 1 : p;
+    }
+
+    int32_t ep[C::endpoint_count];
+    decode_endpoints<M>(l, ep);
+    uint32_t w[16 * planes];
+    decode_weights<M>(l, pat, w);
+#pragma unroll
+    for (int k = 0; k < 16 * planes; ++k) w[k] = remap_weight<C::weight_bits, wb7>(w[k]);
+
+    // endpoint pairs [subset][lo/hi][rgba] (uastc.rs:176-216)
+    int32_t pr[nsub][2][4];
+#pragma unroll
+    for (int s = 0; s < nsub; ++s) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        if constexpr (C::format == FORMAT_RGB) {
+          pr[s][k][0] = ep[6 * s + k];
+          pr[s][k][1] = ep[6 * s + 2 + k];
+          pr[s][k][2] = ep[6 * s + 4 + k];
+          pr[s][k][3] = 255;
+        } else if constexpr (C::format == FORMAT_RGBA) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) pr[s][k][c] = ep[8 * s + 2 * c + k];
+        } else {
+          pr[s][k][0] = pr[s][k][1] = pr[s][k][2] = ep[4 * s + k];
+          pr[s][k][3] = ep[4 * s + 2 + k];
+        }
+      }
+    }
+
+    put(o, 1u << C::bc7, 0, C::bc7 + 1);
+    int ofs = C::bc7 + 1;
+    int32_t lo[nsub7][4], hi[nsub7][4];
+
+    if constexpr (nsub7 != 1) {
+      using F = Family<C::fam>;
+      const int row = F::base + pat;
+      const uint32_t pat_packed = UB_LDG(&FAM_BC7_PAT_PACKED[row]);
+      const uint32_t perm = UB_LDG(&FAM_PERM_PACKED[row]);
+      put(o, UB_LDG(&FAM_BC7_INDEX[row]), ofs, B::pat_bits);
+      ofs += B::pat_bits;
+
+      // BC7 subset j takes UASTC subset perm[j] (bc7.rs:163-169)
+#pragma unroll
+      for (int j = 0; j < nsub7; ++j) {
+        const uint32_t pj = (perm >> (4 * j)) & 15u;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          int32_t vl = pr[0][0][c], vh = pr[0][1][c];
+#pragma unroll
+          for (int s = 1; s < nsub; ++s) {
+            vl = pj == static_cast<uint32_t>(s) ? pr[s][0][c] : vl;
+            vh = pj == static_cast<uint32_t>(s) ? pr[s][1][c] : vh;
+          }
+          lo[j][c] = vl;
+          hi[j][c] = vh;
+        }
+      }
+
+      // Swap endpoints and invert weights of BC7 subset j >= 1 where its
+      // anchor weight's MSB is set (bc7.rs:171-195).  That MSB is the raw
+      // stored bit at a per-pattern position (valid flag in bit 7).
+      const uint32_t inv_packed = UB_LDG(&FAM_BC7_INV_RELPOS_PACKED[C::inv_base + pat]);
+      uint32_t inv_mask[3] = {0u, 0u, 0u};
+#pragma unroll
+      for (int s = 1; s < nsub7; ++s) {
+        const uint32_t entry = (inv_packed >> (8 * (s - 1))) & 0xFFu;
+        const int rlo = s == 1 ? C::inv_lo1 : C::inv_lo2, rhi = s == 1 ? C::inv_hi1 : C::inv_hi2;
+        const uint32_t bit = extract_bit_dyn(l, (entry & 63u) + C::ofs_weights,
+                                             C::ofs_weights + rlo, C::ofs_weights + rhi + 1);
+        const bool inv = (bit & (entry >> 7)) != 0u;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int32_t a = lo[s][c], b = hi[s][c];
+          lo[s][c] = inv ? b : a;
+          hi[s][c] = inv ? a : b;
+        }
+        inv_mask[s] = inv ? mask(wb7) : 0u;
+      }
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const uint32_t s_i = (pat_packed >> (2 * i)) & 3u;
+        w[i] ^= s_i == 1u ? inv_mask[1] : s_i == 2u ? inv_mask[2] : 0u;
+      }
+    } else {
+      // single subset: the anchor is texel 0, stored with one bit less, so
+      // the reference's anchor-MSB swap never fires
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        lo[0][c] = pr[0][0][c];
+        hi[0][c] = pr[0][1][c];
+      }
+      if constexpr (planes == 2) {
+        // rotation: swap the selected channel with alpha (bc7.rs:216-219)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          if (cs == c) {
+            const int32_t tl = lo[0][c], th = hi[0][c];
+            lo[0][c] = lo[0][3];
+            hi[0][c] = hi[0][3];
+            lo[0][3] = tl;
+            hi[0][3] = th;
+          }
+        }
+        put(o, static_cast<uint32_t>(cs + 1) & 3u, ofs, 2);
+        ofs += 2;
+        if constexpr (B::id == 4) ofs += 1;  // index selection bit, always 0
+      }
+    }
+
+    // p-bits or plain endpoint scaling (bc7.rs:249-274)
+    uint32_t pb_lo[nsub7], pb_hi[nsub7];
+#pragma unroll
+    for (int j = 0; j < nsub7; ++j) {
+      if constexpr (B::p_bits != 0) {
+        unique_pbits<cc, B::color_bits>(lo[j], hi[j], pb_lo[j], pb_hi[j]);
+      } else if constexpr (B::sp_bits != 0) {
+        shared_pbit<cc, B::color_bits>(lo[j], hi[j], pb_lo[j]);
+        pb_hi[j] = pb_lo[j];
+      } else {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          lo[j][c] = scale_ep<B::color_bits>(lo[j][c]);
+          hi[j][c] = scale_ep<B::color_bits>(hi[j][c]);
+        }
+        if constexpr (cc == 4) {
+          lo[j][3] = scale_ep<B::alpha_bits>(lo[j][3]);
+          hi[j][3] = scale_ep<B::alpha_bits>(hi[j][3]);
+        }
+      }
+    }
+
+    // endpoints (bc7.rs:276-286): lo and hi are adjacent fields
+#pragma unroll
+    for (int c = 0; c < cc; ++c) {
+      constexpr int cb = B::color_bits, ab = B::alpha_bits;
+      const int bits = c != 3 ? cb : ab;
+#pragma unroll
+      for (int j = 0; j < nsub7; ++j) {
+        put(o, static_cast<uint32_t>(lo[j][c]) | (static_cast<uint32_t>(hi[j][c]) << bits), ofs,
+            2 * bits);
+        ofs += 2 * bits;
+      }
+    }
+    if constexpr (B::p_bits != 0) {
+#pragma unroll
+      for (int j = 0; j < nsub7; ++j, ofs += 2) put(o, (pb_hi[j] << 1) | pb_lo[j], ofs, 2);
+    } else if constexpr (B::sp_bits != 0) {
+      put(o, (pb_lo[1] << 1) | pb_lo[0], ofs, 2);
+      ofs += 2;
+    }
+
+    // weights (bc7.rs:296-307); anchors are written with one bit less
+    if constexpr (nsub7 == 1) {
+#pragma unroll
+      for (int p = 0; p < planes; ++p) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int bits_i = i == 0 ? wb7 - 1 : wb7;
+          put(o, w[planes * i + p], ofs, bits_i);
+          ofs += bits_i;
+        }
+      }
+    } else {
+      // texel i lands in the static window [ofs + wb7*i - maxab_i, +wb7+maxab_i),
+      // shifted into place by a per-pattern pre-shift (maxab_i - ab_i)
+      using F = Family<C::fam>;
+      const uint32_t ps_packed = UB_LDG(&FAM_BC7_WEIGHT_PRESHIFT_PACKED[F::base + pat]);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int mn = (F::bc7_ab_min_packed >> (2 * i)) & 3, mx = (F::bc7_ab_max_packed >> (2 * i)) & 3;
+        if (mn == mx) {
+          put(o, w[i], ofs + wb7 * i - mx, wb7);
+        } else {
+          put(o, w[i] << ((ps_packed >> (2 * i)) & 3u), ofs + wb7 * i - mx, wb7 + mx);
+        }
+      }
+    }
+    return err;
+  }
+}
+
+}  // namespace ub

@@ -1,0 +1,197 @@
+"""Constant tables of the transcoder, shared with the JAX package.
+
+The JAX package's `basisu_rs_tpu/tables/` directory is pure numpy and
+imports only its own siblings, but importing it as `basisu_rs_tpu.tables`
+would run `basisu_rs_tpu/__init__.py`, which imports JAX.  So this module
+loads that directory by path, under the private name
+`basisu_rs_tpu_torch._ref_tables`: one source of truth, no copied tables,
+and no JAX.
+
+The transcoder has no learned weights; its state is these constant tables.
+`kernel_tables()` lays out every table the UASTC->BC7 path indexes at run
+time as flat arrays (one array per kind, families and ranges concatenated,
+with static base offsets).  The same layout feeds both the plain PyTorch
+version (`device_tables`) and the generated CUDA header
+(`gen_header.py` -> `csrc/uastc_tables.cuh`).
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import sys
+from dataclasses import dataclass
+from functools import lru_cache
+from pathlib import Path
+
+import numpy as np
+import torch
+
+_REF_DIR = Path(__file__).resolve().parents[1] / "basisu_rs_tpu" / "tables"
+_REF_NAME = __name__.rpartition(".")[0] + "._ref_tables"
+
+
+def _load_ref():
+    if _REF_NAME in sys.modules:
+        return sys.modules[_REF_NAME]
+    spec = importlib.util.spec_from_file_location(
+        _REF_NAME, _REF_DIR / "__init__.py", submodule_search_locations=[str(_REF_DIR)]
+    )
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[_REF_NAME] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+ref = _load_ref()
+
+MODES = ref.MODES
+BC7_MODES = ref.BC7_MODES
+BISE_RANGES = ref.BISE_RANGES
+LA = ref.LA
+MODE8_RGBA_OFFSET = ref.MODE8_RGBA_OFFSET
+ModeCfg = ref.ModeCfg
+get_family = ref.get_family
+np_tables = ref.np_tables
+
+INVALID_MODE = 19
+
+# Pattern families in table order (`Family<F>` in the CUDA header).
+FAMILIES = ("2", "3", "23", "m1")
+
+# Per-pattern family tables, concatenated over FAMILIES.
+_FAM_KINDS = (
+    "ANCHORS_PACKED",
+    "ANCHORS_BEFORE_PACKED",
+    "BC7_INDEX",
+    "BC7_PAT_PACKED",
+    "PERM_PACKED",
+    "BC7_WEIGHT_PRESHIFT_PACKED",
+)
+
+
+def _fam_arrays(name: str) -> dict:
+    fam = ref._families()[name]
+    return {
+        "ANCHORS_PACKED": fam.anchors_packed,
+        "ANCHORS_BEFORE_PACKED": ref.fam_anchors_before_packed(name),
+        "BC7_INDEX": fam.bc7_index,
+        "BC7_PAT_PACKED": fam.bc7_pat_packed,
+        "PERM_PACKED": fam.perm_packed,
+        "BC7_WEIGHT_PRESHIFT_PACKED": ref.fam_bc7_weight_preshift_packed(name),
+    }
+
+
+def family_name(cfg) -> str | None:
+    fam = get_family(cfg)
+    return None if fam is None else fam.name
+
+
+def _pack_cols(tab: np.ndarray) -> int:
+    """[count, 16] values <= 3 -> (column min packed, column max packed),
+    2 bits per texel."""
+    lo = hi = 0
+    for t in range(16):
+        lo |= int(tab[:, t].min()) << (2 * t)
+        hi |= int(tab[:, t].max()) << (2 * t)
+    return lo, hi
+
+
+@dataclass(frozen=True)
+class Layout:
+    """Static base offsets into the flat kernel tables."""
+
+    fam_base: dict  # family name -> row offset into every FAM_* table
+    unquant_base: dict  # BISE range index -> offset into UNQUANT_LUT
+    inv_relpos_base: dict  # (family name, weight bits) -> offset
+
+
+@lru_cache(maxsize=None)
+def kernel_tables():
+    """(arrays, layout): every run-time-indexed table of the BC7 path as
+    flat numpy arrays (dtype = the CUDA header's element type)."""
+    arrays: dict = {"MODE_LUT": np_tables()["MODE_LUT"].astype(np.uint8)}
+
+    unquant, unquant_base, n = [], {}, 0
+    for r, rng in enumerate(BISE_RANGES):
+        if rng.trits or rng.quints:
+            lut = ref.bise.unquant_lut(r)
+            unquant_base[r] = n
+            unquant.append(lut)
+            n += len(lut)
+    arrays["UNQUANT_LUT"] = np.concatenate(unquant).astype(np.uint8)
+
+    fam_base, n = {}, 0
+    per_kind = {k: [] for k in _FAM_KINDS}
+    for name in FAMILIES:
+        fam_base[name] = n
+        n += ref._families()[name].count
+        for k, a in _fam_arrays(name).items():
+            per_kind[k].append(a)
+    for k in _FAM_KINDS:
+        dtype = np.uint8 if k == "BC7_INDEX" else np.uint32
+        arrays["FAM_" + k] = np.concatenate(per_kind[k]).astype(dtype)
+
+    relpos, inv_base, n = [], {}, 0
+    for cfg in MODES:
+        name = family_name(cfg)
+        bc7 = BC7_MODES[int(np_tables()["UASTC_TO_BC7_MODES"][cfg.id])]
+        if cfg.id == 8 or bc7.subset_count == 1 or (name, cfg.weight_bits) in inv_base:
+            continue
+        inv_base[(name, cfg.weight_bits)] = n
+        a = ref.fam_bc7_inv_relpos_packed(name, cfg.weight_bits)
+        relpos.append(a)
+        n += len(a)
+    arrays["FAM_BC7_INV_RELPOS_PACKED"] = np.concatenate(relpos).astype(np.uint32)
+
+    arrays["BC7_MODE_5_OPTIMAL_PACKED"] = ref.bc7_mode_5_optimal_packed().astype(np.uint16)
+    arrays["BC7_MODE_6_OPTIMAL_PACKED"] = ref.bc7_mode_6_optimal_packed().astype(np.uint16)
+    return arrays, Layout(fam_base, unquant_base, inv_base)
+
+
+@lru_cache(maxsize=None)
+def family_consts(name: str) -> dict:
+    """Static per-family constants (the `Family<F>` traits of the header)."""
+    fam = ref._families()[name]
+    ab_lo, ab_hi = _pack_cols(ref.fam_anchors_before(name))
+    b_lo, b_hi = _pack_cols(ref.fam_bc7_anchors_before(name))
+    return {
+        "count": fam.count,
+        "n_anchors": int(fam.anchors.shape[1]),
+        "base": kernel_tables()[1].fam_base[name],
+        "ab_min_packed": ab_lo,
+        "ab_max_packed": ab_hi,
+        "bc7_ab_min_packed": b_lo,
+        "bc7_ab_max_packed": b_hi,
+    }
+
+
+def inv_relpos_bounds(name: str, weight_bits: int) -> list:
+    """Static (min, max) of the relative anchor-MSB bit position for BC7
+    subsets 1 and 2 over the family's patterns."""
+    a = ref.fam_bc7_inv_relpos_packed(name, weight_bits)
+    out = []
+    for s in (1, 2):
+        rel = (a >> (8 * (s - 1))) & 63
+        out.append((int(rel.min()), int(rel.max())))
+    return out
+
+
+def bc7_mode_of(cfg) -> int:
+    return int(np_tables()["UASTC_TO_BC7_MODES"][cfg.id])
+
+
+_DEVICE_TABLES: dict = {}
+
+
+def device_tables(device) -> dict:
+    """kernel_tables() arrays as torch tensors on `device`, cached per
+    device.  MODE_LUT stays uint8 (the dispatch sorts its uint8 result);
+    every other table is int64, the plain version's word type."""
+    device = torch.device(device)
+    if device not in _DEVICE_TABLES:
+        arrays, _ = kernel_tables()
+        _DEVICE_TABLES[device] = {
+            k: torch.as_tensor(a if k == "MODE_LUT" else a.astype(np.int64), device=device)
+            for k, a in arrays.items()
+        }
+    return _DEVICE_TABLES[device]
