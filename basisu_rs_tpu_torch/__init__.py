@@ -1,13 +1,36 @@
 """PyTorch + CUDA port of the Basis Universal batch transcoder.
 
 The JAX package `basisu_rs_tpu` is the reference this port is held against.
-So far the port carries the main path, UASTC -> BC7: a mode partition on the
-device and one hand-written sm_90a CUDA kernel launch per UASTC mode
-(`csrc/uastc_bc7.cu`), with a plain PyTorch version of the same kernel
-(`ops/bc7.py`) for tensors on the CPU.  This package imports torch and
-numpy, never JAX.
+So far the port carries the UASTC paths to BC7, ASTC and RGBA, for loose
+blocks and for UASTC .basis files: a mode partition on the device and one
+hand-written sm_90a CUDA kernel launch per UASTC mode and target
+(`csrc/uastc_{bc7,astc,rgba}.cu`), with a plain PyTorch version of each
+kernel (`ops/{bc7,astc,rgba}.py`) for tensors on the CPU.  Every entry point
+runs on the card unless called with `device="cpu"`.  This package imports
+torch and numpy, never JAX, and nothing of the JAX package.
 """
 
-from .api import BasisError, transcode_uastc_block_to_bc7, transcode_uastc_blocks
+from .api import (
+    BasisError,
+    Image,
+    transcode_uastc_block_to_astc,
+    transcode_uastc_block_to_bc7,
+    transcode_uastc_blocks,
+    unpack_uastc_block_to_rgba,
+)
+from .container import read_to_astc, read_to_bc7, read_to_etc1, read_to_etc2, read_to_rgba, read_to_uastc
 
-__all__ = ["BasisError", "transcode_uastc_block_to_bc7", "transcode_uastc_blocks"]
+__all__ = [
+    "BasisError",
+    "Image",
+    "read_to_astc",
+    "read_to_bc7",
+    "read_to_etc1",
+    "read_to_etc2",
+    "read_to_rgba",
+    "read_to_uastc",
+    "transcode_uastc_block_to_astc",
+    "transcode_uastc_block_to_bc7",
+    "transcode_uastc_blocks",
+    "unpack_uastc_block_to_rgba",
+]

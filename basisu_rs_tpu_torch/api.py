@@ -2,11 +2,15 @@
 
 Block-level functions raise `BasisError` where the reference returns `Err`
 (invalid mode index, invalid pattern index).  The batch function takes
-numpy or torch uint8 `[N, 16]` blocks and returns torch tensors on the
-requested device.  Only the "bc7" target is ported so far.
+numpy or torch uint8 `[N, 16]` blocks and returns torch tensors.  Every
+entry point runs on `device="cuda"` unless the caller asks for another
+device; with no card it raises rather than falling back to the CPU, where
+the plain versions run only when asked for with `device="cpu"`.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -18,22 +22,58 @@ class BasisError(ValueError):
     """Transcode/parse failure (reference: Error = String, src/lib.rs:26)."""
 
 
+def resolve_device(device) -> torch.device:
+    """The torch device an entry point runs on; raises for "cuda" when no
+    card is present."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card by default; pass device='cpu' "
+            "to run the plain PyTorch versions on the CPU"
+        )
+    return device
+
+
+@dataclass
+class Image:
+    """Decoded image plane (reference: src/lib.rs:63-79).
+
+    `stride` is in elements of `data` per row; `data` is a flat torch tensor
+    on the device the call ran on (uint8 bytes for block formats and RGBA
+    byte output, uint32 for packed RGBA texel words).
+    """
+
+    w: int
+    h: int
+    stride: int
+    data: torch.Tensor
+
+    def into_rgba_bytes(self) -> "Image":
+        """Image of packed RGBA u32 texel words -> Image of RGBA bytes
+        (reference: Image<Color32>::into_rgba_bytes, src/lib.rs:70-79).
+        Byte images pass through unchanged."""
+        if self.data.dtype == torch.uint8:
+            return self
+        data = self.data.contiguous().view(torch.uint8).reshape(-1)
+        return Image(w=self.w, h=self.h, stride=self.stride * 4, data=data)
+
+
 def _as_blocks(blocks, device) -> torch.Tensor:
+    device = resolve_device(device)
     if isinstance(blocks, torch.Tensor):
         t = blocks
     else:
         t = torch.from_numpy(np.ascontiguousarray(blocks, np.uint8))
-    if device is not None:
-        t = t.to(device)
     if t.dtype != torch.uint8:
         raise ValueError(f"UASTC blocks must be uint8, got {t.dtype}")
-    return t.reshape(-1, 16).contiguous()
+    return t.to(device).reshape(-1, 16).contiguous()
 
 
-def transcode_uastc_blocks(blocks, target: str, device=None):
+def transcode_uastc_blocks(blocks, target: str, device="cuda"):
     """Batch transcode: uint8 [N,16] UASTC blocks (numpy or torch) ->
-    (out uint8 [N,16], err bool [N]) as torch tensors on `device` (default:
-    the tensor's own device; CPU for numpy input)."""
+    (out, err bool [N]) as torch tensors on `device`.  out is uint8 [N,16]
+    block bytes for "bc7" and "astc", and uint32 [N,16] packed RGBA texel
+    words for "rgba"."""
     check_target(target)
     return transcode_blocks(_as_blocks(blocks, device), target)
 
@@ -51,7 +91,7 @@ def _one_block(data) -> np.ndarray:
     return arr[None, :]
 
 
-def _single(data, target: str, device):
+def _single(data, target: str, device) -> np.ndarray:
     block = _as_blocks(_one_block(data), device)
     out, err = transcode_blocks(block, target)
     if bool(err[0]):
@@ -62,6 +102,16 @@ def _single(data, target: str, device):
     return out[0].cpu().numpy()
 
 
-def transcode_uastc_block_to_bc7(data, device=None) -> bytes:
+def unpack_uastc_block_to_rgba(data, device="cuda") -> np.ndarray:
+    """16-byte UASTC block -> 16 packed RGBA u32 texels (lib.rs:29-31)."""
+    return _single(data, "rgba", device)
+
+
+def transcode_uastc_block_to_astc(data, device="cuda") -> bytes:
+    """16-byte UASTC block -> 16-byte ASTC 4x4 block."""
+    return _single(data, "astc", device).tobytes()
+
+
+def transcode_uastc_block_to_bc7(data, device="cuda") -> bytes:
     """16-byte UASTC block -> 16-byte BC7 block (lib.rs:29-79)."""
     return _single(data, "bc7", device).tobytes()

@@ -1,0 +1,323 @@
+""".basis container parsing and the UASTC file path.
+
+Port of the UASTC half of `basisu_rs_tpu/container/basis.py`, mirroring the
+reference container layer (src/basis.rs): signature + 77-byte header with
+u24 fields, CRC-16/GENIBUS header and data checksums, 23-byte slice
+descriptors, and `read_to_{rgba,astc,bc7,uastc}` for UASTC files.
+
+Device design: the host parses and checks the file (header, both CRCs,
+slice table), then copies the UASTC payload of all slices to the device
+once and runs one `transcode_blocks` over the slices concatenated in slice
+order, so a file pays one partition and at most 19 launches, not that per
+slice.  The first failing block in that order is the reference's abort
+point.  RGBA images are reordered from block rows ([by, bx, y, x]) to
+raster rows on the device.  Images keep the JAX package's strides.  Every
+`read_to_*` runs on `device="cuda"` unless asked for another device.
+
+Not ported yet: ETC1S files (ROADMAP.md Queue 1 item 9), the ETC1/ETC2
+targets (item 8) and `mesh=` (item 11).
+"""
+
+from __future__ import annotations
+
+import struct
+import warnings
+from dataclasses import dataclass
+from enum import IntEnum
+
+import numpy as np
+import torch
+
+from ..api import BasisError, Image, resolve_device
+from ..ops.dispatch import INVALID_MODE, block_modes, transcode_blocks
+from ..ops.kernels import OUT_BYTES
+from ..tables import UASTC_BLOCK_SIZE
+from .crc import crc16
+
+SIG = 0x4273
+
+
+class TexFormat(IntEnum):
+    ETC1S = 0
+    UASTC4x4 = 1
+
+
+def _u24(b: bytes, ofs: int) -> int:
+    return b[ofs] | (b[ofs + 1] << 8) | (b[ofs + 2] << 16)
+
+
+@dataclass
+class Header:
+    """77-byte .basis file header (reference: basis.rs:417-517)."""
+
+    FILE_SIZE = 77
+
+    sig: int
+    ver: int
+    header_size: int
+    header_crc16: int
+    data_size: int
+    data_crc16: int
+    total_slices: int
+    total_images: int
+    tex_format: int
+    flags: int
+    tex_type: int
+    us_per_frame: int
+    reserved: int
+    userdata0: int
+    userdata1: int
+    total_endpoints: int
+    endpoint_cb_file_ofs: int
+    endpoint_cb_file_size: int
+    total_selectors: int
+    selector_cb_file_ofs: int
+    selector_cb_file_size: int
+    tables_file_ofs: int
+    tables_file_size: int
+    slice_desc_file_ofs: int
+    extended_file_ofs: int
+    extended_file_size: int
+
+    def texture_format(self) -> TexFormat:
+        try:
+            return TexFormat(self.tex_format)
+        except ValueError:
+            raise BasisError("Unknown texture format") from None
+
+    @classmethod
+    def from_file_bytes(cls, b: bytes) -> "Header":
+        assert len(b) >= cls.FILE_SIZE
+        sig, ver, header_size, header_crc = struct.unpack_from("<4H", b, 0)
+        (data_size,) = struct.unpack_from("<I", b, 8)
+        (data_crc,) = struct.unpack_from("<H", b, 12)
+        total_slices = _u24(b, 14)
+        total_images = _u24(b, 17)
+        tex_format = b[20]
+        (flags,) = struct.unpack_from("<H", b, 21)
+        tex_type = b[23]
+        us_per_frame = _u24(b, 24)
+        reserved, ud0, ud1 = struct.unpack_from("<3I", b, 27)
+        (total_endpoints, endpoint_ofs) = struct.unpack_from("<HI", b, 39)
+        endpoint_size = _u24(b, 45)
+        (total_selectors, selector_ofs) = struct.unpack_from("<HI", b, 48)
+        selector_size = _u24(b, 54)
+        tables_ofs, tables_size, slice_ofs, ext_ofs, ext_size = struct.unpack_from("<5I", b, 57)
+        return cls(
+            sig, ver, header_size, header_crc, data_size, data_crc, total_slices,
+            total_images, tex_format, flags, tex_type, us_per_frame, reserved, ud0,
+            ud1, total_endpoints, endpoint_ofs, endpoint_size, total_selectors,
+            selector_ofs, selector_size, tables_ofs, tables_size, slice_ofs,
+            ext_ofs, ext_size,
+        )
+
+
+@dataclass
+class SliceDesc:
+    """23-byte slice descriptor (reference: basis.rs:519-572)."""
+
+    FILE_SIZE = 23
+
+    image_index: int
+    level_index: int
+    flags: int
+    orig_width: int
+    orig_height: int
+    num_blocks_x: int
+    num_blocks_y: int
+    file_ofs: int
+    file_size: int
+    slice_data_crc16: int
+
+    @classmethod
+    def from_file_bytes(cls, b: bytes) -> "SliceDesc":
+        assert len(b) >= cls.FILE_SIZE
+        image_index = _u24(b, 0)
+        level_index, flags = b[3], b[4]
+        ow, oh, nbx, nby = struct.unpack_from("<4H", b, 5)
+        fo, fs = struct.unpack_from("<2I", b, 13)
+        (crc,) = struct.unpack_from("<H", b, 21)
+        return cls(image_index, level_index, flags, ow, oh, nbx, nby, fo, fs, crc)
+
+
+def read_header(buf: bytes) -> Header:
+    """Parse + validate the header (reference: basis.rs:307-336)."""
+    if len(buf) < 2 or struct.unpack_from("<H", buf, 0)[0] != SIG:
+        raise BasisError("Sig mismatch, not a Basis Universal file")
+    if len(buf) < Header.FILE_SIZE:
+        raise BasisError(f"Expected at least {Header.FILE_SIZE} byte header, got {len(buf)} bytes")
+    header = Header.from_file_bytes(buf)
+    if header.header_size != Header.FILE_SIZE:
+        raise BasisError(
+            f"File specified unexpected header size, expected {Header.FILE_SIZE}, "
+            f"got {header.header_size}"
+        )
+    if crc16(memoryview(buf)[8 : Header.FILE_SIZE]) != header.header_crc16:
+        raise BasisError("Header CRC16 failed")
+    return header
+
+
+def check_file_checksum(buf: bytes, header: Header) -> bool:
+    return crc16(memoryview(buf)[Header.FILE_SIZE :]) == header.data_crc16
+
+
+def read_slice_descs(buf: bytes, header: Header) -> list[SliceDesc]:
+    start = header.slice_desc_file_ofs
+    descs = []
+    for i in range(header.total_slices):
+        ofs = start + i * SliceDesc.FILE_SIZE
+        if len(buf) - ofs < SliceDesc.FILE_SIZE:
+            raise BasisError(
+                f"Expected {SliceDesc.FILE_SIZE} byte slice desc at pos {ofs}, "
+                f"only {len(buf) - ofs} bytes remain"
+            )
+        descs.append(SliceDesc.from_file_bytes(buf[ofs : ofs + SliceDesc.FILE_SIZE]))
+    return descs
+
+
+def _validated(buf: bytes) -> tuple[Header, list[SliceDesc]]:
+    header = read_header(buf)
+    if not check_file_checksum(buf, header):
+        raise BasisError("Data CRC16 failed")
+    return header, read_slice_descs(buf, header)
+
+
+def _slice_span(buf: bytes, desc: SliceDesc) -> tuple[int, int]:
+    """(start, size) of the slice's payload in the file, clipped at its end
+    as Python slicing clips."""
+    start = min(desc.file_ofs, len(buf))
+    return start, min(desc.file_size, len(buf) - start)
+
+
+def _view(buf: bytes, span: tuple[int, int]) -> np.ndarray:
+    """Read-only uint8 view of buf[start : start + size]."""
+    start, size = span
+    return np.frombuffer(buf, np.uint8, count=size, offset=start)
+
+
+def uastc_payload(buf: bytes, descs: list[SliceDesc], device) -> tuple[torch.Tensor, list[int]]:
+    """(blocks, counts): the UASTC blocks of the slices before the first one
+    whose payload is not a whole number of blocks (all slices when every one
+    is), concatenated in slice order as uint8 [N,16] on `device`, copied
+    from the host once; counts holds each of those slices' block count."""
+    spans = []
+    for desc in descs:
+        start, size = _slice_span(buf, desc)
+        if size % UASTC_BLOCK_SIZE:
+            break
+        spans.append((start, size))
+    if spans and all(a + n == b for (a, n), (b, _) in zip(spans, spans[1:])):
+        # slices back to back in the file: one view, no host copy
+        host = _view(buf, (spans[0][0], sum(n for _, n in spans)))
+    else:
+        host = np.concatenate([np.zeros(0, np.uint8)] + [_view(buf, span) for span in spans])
+    with warnings.catch_warnings():
+        # a view of the caller's bytes: only read, by the copy or the kernels
+        warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+        t = torch.from_numpy(host)
+    return t.to(device).reshape(-1, UASTC_BLOCK_SIZE), [n // UASTC_BLOCK_SIZE for _, n in spans]
+
+
+def _check_errs(err: torch.Tensor, blocks: torch.Tensor) -> None:
+    """Raise with the reference's message for the FIRST failing block.
+
+    The reference's transcode loop (uastc.rs:148-165) aborts read_to_* with
+    the first failing block's own error: "invalid mode index" (uastc.rs:336)
+    or "block pattern is not valid" (uastc.rs:364), the only two per-block
+    Err sites.  The kernels report a flag per block; the message is derived
+    from the first failing block's mode."""
+    bad = torch.nonzero(err)
+    if bad.numel():
+        first = int(bad[0, 0])
+        if int(block_modes(blocks[first : first + 1])[0]) == INVALID_MODE:
+            raise BasisError("invalid mode index")
+        raise BasisError("block pattern is not valid")
+
+
+def _transcode_file(buf: bytes, target: str, device):
+    """(header, slices, out) of a UASTC file: out is transcode_blocks'
+    result over every slice in slice order, on `device`, and slices holds
+    (desc, first row, end row) of each slice's rows in out.  header is None
+    for an ETC1S file, which the caller handles."""
+    device = resolve_device(device)
+    header, descs = _validated(buf)
+    if header.texture_format() != TexFormat.UASTC4x4:
+        return None, None, None
+    blocks, counts = uastc_payload(buf, descs, device)
+    out, err = transcode_blocks(blocks, target)
+    _check_errs(err, blocks)
+    if len(counts) < len(descs):
+        raise BasisError("data length is not divisible by UASTC block size (16)")
+    ends = np.cumsum(counts).tolist()
+    return header, [(d, e - n, e) for d, n, e in zip(descs, counts, ends)], out
+
+
+def rgba_images(out: torch.Tensor, slices) -> list[Image]:
+    """Per-slice RGBA byte images from transcode_blocks' "rgba" result over
+    the file's blocks: [by, bx, y, x] texel rows -> raster rows, on the
+    device."""
+    texels = out.view(torch.uint8)  # [N, 64]: 4 rows of 4 texels of 4 bytes
+    images = []
+    for desc, a, b in slices:
+        nbx = desc.num_blocks_x
+        t = texels[a:b].reshape(-1, nbx, 4, 16).permute(0, 2, 1, 3).reshape(-1)
+        images.append(Image(w=desc.orig_width, h=desc.orig_height, stride=4 * nbx * 4, data=t))
+    return images
+
+
+def read_to_rgba(buf: bytes, device="cuda") -> tuple[Header, list[Image]]:
+    """-> (Header, [Image]) of RGBA bytes, one image per slice (reference:
+    basis.rs:8-90)."""
+    header, slices, out = _transcode_file(buf, "rgba", device)
+    if header is None:
+        raise NotImplementedError("ETC1S files are not ported to PyTorch yet (ROADMAP.md Queue 1 item 9)")
+    return header, rgba_images(out, slices)
+
+
+def _read_to_blocks(buf: bytes, target: str, device) -> list[Image]:
+    """Shared UASTC path of read_to_{astc,bc7} (basis.rs:92-260)."""
+    header, slices, out = _transcode_file(buf, target, device)
+    if header is None:
+        raise BasisError("unsupported texture format")
+    size = OUT_BYTES[target]
+    return [
+        Image(w=desc.orig_width, h=desc.orig_height, stride=size * desc.num_blocks_x, data=out[a:b].reshape(-1))
+        for desc, a, b in slices
+    ]
+
+
+def read_to_astc(buf: bytes, device="cuda") -> list[Image]:
+    return _read_to_blocks(buf, "astc", device)
+
+
+def read_to_bc7(buf: bytes, device="cuda") -> list[Image]:
+    return _read_to_blocks(buf, "bc7", device)
+
+
+def read_to_uastc(buf: bytes, device="cuda") -> list[Image]:
+    """Raw UASTC block passthrough (reference: basis.rs:175-202), the
+    payload of each slice copied to `device`."""
+    device = resolve_device(device)
+    header, descs = _validated(buf)
+    if header.texture_format() != TexFormat.UASTC4x4:
+        raise BasisError("unsupported texture format")
+    return [
+        Image(
+            w=desc.orig_width,
+            h=desc.orig_height,
+            stride=UASTC_BLOCK_SIZE * desc.num_blocks_x,
+            data=torch.tensor(_view(buf, _slice_span(buf, desc)), device=device),
+        )
+        for desc in descs
+    ]
+
+
+def read_to_etc1(buf: bytes, device="cuda") -> list[Image]:
+    raise NotImplementedError(
+        "read_to_etc1 is not ported to PyTorch yet (ROADMAP.md Queue 1 item 8 for UASTC files, "
+        "item 9 for ETC1S files)"
+    )
+
+
+def read_to_etc2(buf: bytes, device="cuda") -> list[Image]:
+    raise NotImplementedError("read_to_etc2 is not ported to PyTorch yet (ROADMAP.md Queue 1 item 8)")

@@ -3,218 +3,13 @@
 // constant and folds, as the per-mode trace folds them in the JAX package.
 //
 // Port of basisu_rs_tpu/ops/bc7.py (uastc_to_bc7_mode, _mode8_to_bc7, the
-// p-bit searches), ops/uastc_decode.py (decode_fields) and the helpers of
-// ops/bits.py; the plain PyTorch version is basisu_rs_tpu_torch/ops/bc7.py.
-//
-// The same source compiles two ways through the macro shim below:
-//   - nvcc: device functions, tables in __device__ global memory read with
-//     __ldg (pattern-indexed lookups diverge, which __constant__ serialises);
-//   - g++:  host functions and static tables, so the CPU tests can hold this
-//     exact code against the plain version (tests/test_torch_csrc_host.py).
-//
-// Traps this code is written against:
-//   - IEEE f32: fl_div255 and the shared p-bit error round every multiply
-//     and add on its own (fmul_rn/fadd_rn/fsub_rn; nvcc --fmad=false, g++
-//     -ffp-contract=off as a second guard).
-//   - Shift counts >= 32 are undefined in C++: extract/put keep the
-//     reference's `w + 1 < W` bounds, and no shift below can reach 32.
-//   - Words are uint32_t and field arithmetic int32_t, with explicit casts,
-//     so `>>` on a word is always logical.
+// p-bit searches); the shared UASTC decode is in uastc_decode.cuh.  The plain
+// PyTorch version is basisu_rs_tpu_torch/ops/bc7.py.  Like uastc_decode.cuh,
+// this source also compiles with g++ for the CPU tests.
 #pragma once
-#include <stdint.h>
-
-#if defined(__CUDACC__)
-#define UB_FN __device__ __forceinline__
-#define UB_TABLE __device__ const
-#define UB_LDG(p) __ldg(p)
-#else
-#define UB_FN inline
-#define UB_TABLE static const
-#define UB_LDG(p) (*(p))
-#endif
-
-#include "uastc_tables.cuh"
+#include "uastc_decode.cuh"
 
 namespace ub {
-
-// ---- IEEE-single arithmetic, one rounding per operation -------------------
-
-UB_FN float fmul_rn(float a, float b) {
-#if defined(__CUDA_ARCH__)
-  return __fmul_rn(a, b);
-#else
-  return a * b;
-#endif
-}
-
-UB_FN float fadd_rn(float a, float b) {
-#if defined(__CUDA_ARCH__)
-  return __fadd_rn(a, b);
-#else
-  return a + b;
-#endif
-}
-
-UB_FN float fsub_rn(float a, float b) {
-#if defined(__CUDA_ARCH__)
-  return __fsub_rn(a, b);
-#else
-  return a - b;
-#endif
-}
-
-// fl(x/255) for x in 0..255 without a divide: y0 = x*257*2^-16 is exact,
-// and fl(x/255) = fl(y0 + fl(y0*K)), K = fl(2^-16/(1-2^-16)).
-UB_FN float fl_div255(int32_t x) {
-  const float y0 = fmul_rn(static_cast<float>(x), 0x1.01p-8f);
-  return fadd_rn(y0, fmul_rn(y0, 0x1.0001p-16f));
-}
-
-// ---- bit fields over four little-endian 32-bit words ----------------------
-
-UB_FN uint32_t mask(int count) {
-  return count >= 32 ? 0xFFFFFFFFu : ((1u << count) - 1u);
-}
-
-// Static-offset extract; bits past the block read as zero.
-UB_FN uint32_t extract(const uint32_t (&l)[4], int offset, int count) {
-  if (count == 0) return 0u;
-  const int w = offset >> 5, b = offset & 31;
-  uint32_t val = (w < 4 ? l[w] : 0u) >> b;
-  if (b + count > 32 && w + 1 < 4) val |= l[w + 1] << (32 - b);
-  return val & mask(count);
-}
-
-// One dynamic bit whose word lies in the static bit range [lo_bit, hi_bit).
-UB_FN uint32_t extract_bit_dyn(const uint32_t (&l)[4], uint32_t offset, int lo_bit,
-                               int hi_bit) {
-  const int wlo = lo_bit >> 5, whi = (hi_bit - 1) >> 5;
-  const uint32_t w = offset >> 5;
-  uint32_t v = l[wlo];
-#pragma unroll
-  for (int k = wlo + 1; k <= whi; ++k) v = (w == static_cast<uint32_t>(k)) ? l[k] : v;
-  return (v >> (offset & 31u)) & 1u;
-}
-
-// OR a `count`-bit field into the output words; bits past the end drop.
-UB_FN void put(uint32_t (&o)[4], uint32_t value, int offset, int count) {
-  if (count == 0) return;
-  value &= mask(count);
-  const int w = offset >> 5, b = offset & 31;
-  if (w < 4) o[w] |= value << b;
-  if (b + count > 32 && w + 1 < 4) o[w + 1] |= value >> (32 - b);
-}
-
-// ---- UASTC field decode (ops/uastc_decode.py) -----------------------------
-
-template <int R>
-UB_FN int32_t unquant_endpoint(int32_t tq, int32_t bits) {
-  using RG = BiseRange<R>;
-  if constexpr (RG::trits == 0 && RG::quints == 0) {
-    if constexpr (RG::bits == 8) {
-      return bits;
-    } else {
-      int32_t val = bits << (8 - RG::bits);
-#pragma unroll
-      for (int sh = 8 - 2 * RG::bits; sh > -RG::bits; sh -= RG::bits)
-        val |= sh >= 0 ? bits << sh : bits >> -sh;
-      return val;
-    }
-  } else {
-    return UB_LDG(&UNQUANT_LUT[RG::unquant_base + ((tq << RG::bits) | bits)]);
-  }
-}
-
-template <int M>
-UB_FN void decode_endpoints(const uint32_t (&l)[4], int32_t (&ep)[Mode<M>::endpoint_count]) {
-  using C = Mode<M>;
-  using RG = BiseRange<C::range>;
-  constexpr int E = C::endpoint_count;
-  int32_t tq[E];
-  int ofs = C::ofs_endpoints;
-  if constexpr (RG::trits || RG::quints) {
-    // groups of 3 quints in 7 bits or 5 trits in 8 bits, digits split off
-    // by mul-shift division: floor(g/5) = (g*205)>>10, floor(g/3) = (g*171)>>9
-    constexpr int base = RG::quints ? 5 : 3, per = RG::quints ? 3 : 5;
-    constexpr int gw = RG::quints ? 7 : 8;
-    constexpr int mul = RG::quints ? 205 : 171, sh = RG::quints ? 10 : 9;
-    int k = 0;
-#pragma unroll
-    for (int g = 0; g < (E + per - 1) / per; ++g) {
-      const int members = (E - g * per) < per ? (E - g * per) : per;
-      // partial group widths: quints {1: 3, 2: 5}, trits {1: 2, 2: 4, 3: 5, 4: 7}
-      const int width = members == per ? gw
-                        : RG::quints   ? (members == 1 ? 3 : 5)
-                                       : (members == 1 ? 2 : members == 2 ? 4 : members == 3 ? 5 : 7);
-      int32_t v = static_cast<int32_t>(extract(l, ofs, width));
-      ofs += width;
-#pragma unroll
-      for (int m = 0; m < per; ++m) {
-        if (m < members) {
-          if (m == members - 1) {
-            tq[k++] = v - base * (v >= base ? 1 : 0);
-          } else {
-            const int32_t q = (v * mul) >> sh;
-            tq[k++] = v - q * base;
-            v = q;
-          }
-        }
-      }
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < E; ++i) tq[i] = 0;
-  }
-#pragma unroll
-  for (int i = 0; i < E; ++i) {
-    const int32_t bits = static_cast<int32_t>(extract(l, ofs + i * RG::bits, RG::bits));
-    ep[i] = unquant_endpoint<C::range>(tq[i], bits);
-  }
-}
-
-// Raw quantized weights in decode order (k = planes*i + plane); anchor
-// texels are stored with one less bit.
-template <int M>
-UB_FN void decode_weights(const uint32_t (&l)[4], int32_t pat,
-                          uint32_t (&w)[16 * Mode<M>::planes]) {
-  using C = Mode<M>;
-  constexpr int wb = C::weight_bits, planes = C::planes, base = C::ofs_weights;
-  if constexpr (!C::multi) {
-    int ofs = base;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int bits_i = i == 0 ? wb - 1 : wb;
-#pragma unroll
-      for (int p = 0; p < planes; ++p) {
-        w[planes * i + p] = extract(l, ofs, bits_i);
-        ofs += bits_i;
-      }
-    }
-  } else {
-    // Multi-subset modes are single-plane.  Texel i's bits lie in the static
-    // window [base + wb*i - maxab_i, base + wb*i + wb), where ab_i is the
-    // pattern's count of anchors before texel i: one static extract and a
-    // small variable shift by (maxab_i - ab_i).
-    static_assert(planes == 1, "multi-subset modes are single-plane");
-    using F = Family<C::fam>;
-    const uint32_t abp = UB_LDG(&FAM_ANCHORS_BEFORE_PACKED[F::base + pat]);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int lo = (F::ab_min_packed >> (2 * i)) & 3, hi = (F::ab_max_packed >> (2 * i)) & 3;
-      const uint32_t ab = lo == hi ? static_cast<uint32_t>(lo) : (abp >> (2 * i)) & 3u;
-      uint32_t ab_next = F::n_anchors;
-      if (i < 15) {
-        const int lo2 = (F::ab_min_packed >> (2 * i + 2)) & 3;
-        const int hi2 = (F::ab_max_packed >> (2 * i + 2)) & 3;
-        ab_next = lo2 == hi2 ? static_cast<uint32_t>(lo2) : (abp >> (2 * i + 2)) & 3u;
-      }
-      const uint32_t wmask = mask(wb) >> (ab_next - ab);  // anchor: one bit less
-      const uint32_t raw = lo == hi ? extract(l, base + wb * i - lo, wb)
-                                    : extract(l, base + wb * i - hi, wb + hi) >> (hi - ab);
-      w[i] = raw & wmask;
-    }
-  }
-}
 
 // ---- BC7 helpers (ops/bc7.py) ---------------------------------------------
 
@@ -336,7 +131,7 @@ UB_FN void mode8_to_bc7(const uint32_t (&l)[4], uint32_t (&o)[4]) {
   int err0 = 0, err1 = 0;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    c[k] = static_cast<int32_t>(extract(l, 5 + 8 * k, 8));
+    c[k] = mode8_channel(l, k);
     err0 += c[k] == 255;  // mode 6 error at p = 0: only extremes are lossy
     err1 += c[k] == 0;    // ... at p = 1
   }
@@ -386,17 +181,9 @@ UB_FN bool uastc_to_bc7(const uint32_t (&l)[4], uint32_t (&o)[4]) {
     constexpr int planes = C::planes, nsub = C::subsets;
     constexpr int cc = B::channels, wb7 = B::weight_bits, nsub7 = B::subset_count;
 
-    int32_t cs = 0;  // component selector
-    if constexpr (planes == 2 && C::format == FORMAT_LA) cs = 3;
-    else if constexpr (C::compsel_bits != 0) cs = static_cast<int32_t>(extract(l, C::ofs_compsel, 2));
-
-    int32_t pat = 0;
-    bool err = false;
-    if constexpr (C::pattern_bits != 0) {
-      const int32_t p = static_cast<int32_t>(extract(l, C::ofs_pattern, C::pattern_bits));
-      err = p >= C::pattern_count;
-      pat = err ? C::pattern_count - 1 : p;
-    }
+    [[maybe_unused]] const int32_t cs = decode_compsel<M>(l);
+    int32_t pat;
+    const bool err = decode_pattern<M>(l, pat);
 
     int32_t ep[C::endpoint_count];
     decode_endpoints<M>(l, ep);
@@ -405,26 +192,8 @@ UB_FN bool uastc_to_bc7(const uint32_t (&l)[4], uint32_t (&o)[4]) {
 #pragma unroll
     for (int k = 0; k < 16 * planes; ++k) w[k] = remap_weight<C::weight_bits, wb7>(w[k]);
 
-    // endpoint pairs [subset][lo/hi][rgba] (uastc.rs:176-216)
-    int32_t pr[nsub][2][4];
-#pragma unroll
-    for (int s = 0; s < nsub; ++s) {
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        if constexpr (C::format == FORMAT_RGB) {
-          pr[s][k][0] = ep[6 * s + k];
-          pr[s][k][1] = ep[6 * s + 2 + k];
-          pr[s][k][2] = ep[6 * s + 4 + k];
-          pr[s][k][3] = 255;
-        } else if constexpr (C::format == FORMAT_RGBA) {
-#pragma unroll
-          for (int c = 0; c < 4; ++c) pr[s][k][c] = ep[8 * s + 2 * c + k];
-        } else {
-          pr[s][k][0] = pr[s][k][1] = pr[s][k][2] = ep[4 * s + k];
-          pr[s][k][3] = ep[4 * s + 2 + k];
-        }
-      }
-    }
+    int32_t pr[nsub][2][4];  // [subset][lo/hi][rgba]
+    endpoint_pairs<M>(ep, pr);
 
     put(o, 1u << C::bc7, 0, C::bc7 + 1);
     int ofs = C::bc7 + 1;

@@ -1,10 +1,10 @@
 // Generated by `python -m basisu_rs_tpu_torch.gen_header` from the numpy
-// tables in basisu_rs_tpu/tables/. Do not edit by hand.
+// tables in basisu_rs_tpu_torch/tables/. Do not edit by hand.
 #pragma once
 #include <stdint.h>
 
 #ifndef UB_TABLE
-#error "include uastc_bc7.cuh, which defines UB_TABLE"
+#error "include uastc_decode.cuh, which defines UB_TABLE"
 #endif
 
 namespace ub {
@@ -13,7 +13,8 @@ constexpr int INVALID_MODE = 19;
 constexpr int FORMAT_RGB = 0, FORMAT_RGBA = 1, FORMAT_LA = 2;
 constexpr int FAM_NONE = -1, FAM_2 = 0, FAM_3 = 1, FAM_23 = 2, FAM_M1 = 3;
 
-// UASTC modes (ModeCfg + field offsets; bc7 = UASTC_TO_BC7_MODES[id]).
+// UASTC modes (ModeCfg + field offsets; bc7 = UASTC_TO_BC7_MODES[id],
+// astc_block_mode = UASTC_TO_ASTC_BLOCK_MODE_13[id]).
 template <int M> struct Mode;
 template <> struct Mode<0> {
   static constexpr int id = 0;
@@ -32,6 +33,7 @@ template <> struct Mode<0> {
   static constexpr int ofs_endpoints = 19;
   static constexpr int ofs_weights = 65;
   static constexpr int bc7 = 6;
+  static constexpr int astc_block_mode = 578;
   static constexpr int fam = -1;
   static constexpr bool multi = false;
   static constexpr int inv_base = -1;
@@ -57,6 +59,7 @@ template <> struct Mode<1> {
   static constexpr int ofs_endpoints = 21;
   static constexpr int ofs_weights = 69;
   static constexpr int bc7 = 3;
+  static constexpr int astc_block_mode = 66;
   static constexpr int fam = 3;
   static constexpr bool multi = false;
   static constexpr int inv_base = 0;
@@ -82,6 +85,7 @@ template <> struct Mode<2> {
   static constexpr int ofs_endpoints = 25;
   static constexpr int ofs_weights = 73;
   static constexpr int bc7 = 1;
+  static constexpr int astc_block_mode = 2131;
   static constexpr int fam = 0;
   static constexpr bool multi = true;
   static constexpr int inv_base = 1;
@@ -107,6 +111,7 @@ template <> struct Mode<3> {
   static constexpr int ofs_endpoints = 24;
   static constexpr int ofs_weights = 89;
   static constexpr int bc7 = 2;
+  static constexpr int astc_block_mode = 4162;
   static constexpr int fam = 1;
   static constexpr bool multi = true;
   static constexpr int inv_base = 31;
@@ -132,6 +137,7 @@ template <> struct Mode<4> {
   static constexpr int ofs_endpoints = 25;
   static constexpr int ofs_weights = 89;
   static constexpr int bc7 = 3;
+  static constexpr int astc_block_mode = 2114;
   static constexpr int fam = 0;
   static constexpr bool multi = true;
   static constexpr int inv_base = 42;
@@ -157,6 +163,7 @@ template <> struct Mode<5> {
   static constexpr int ofs_endpoints = 20;
   static constexpr int ofs_weights = 68;
   static constexpr int bc7 = 6;
+  static constexpr int astc_block_mode = 83;
   static constexpr int fam = -1;
   static constexpr bool multi = false;
   static constexpr int inv_base = -1;
@@ -182,6 +189,7 @@ template <> struct Mode<6> {
   static constexpr int ofs_endpoints = 22;
   static constexpr int ofs_weights = 66;
   static constexpr int bc7 = 5;
+  static constexpr int astc_block_mode = 1090;
   static constexpr int fam = -1;
   static constexpr bool multi = false;
   static constexpr int inv_base = -1;
@@ -207,6 +215,7 @@ template <> struct Mode<7> {
   static constexpr int ofs_endpoints = 25;
   static constexpr int ofs_weights = 89;
   static constexpr int bc7 = 2;
+  static constexpr int astc_block_mode = 2114;
   static constexpr int fam = 2;
   static constexpr bool multi = true;
   static constexpr int inv_base = 72;
@@ -232,6 +241,7 @@ template <> struct Mode<8> {
   static constexpr int ofs_endpoints = 5;
   static constexpr int ofs_weights = 13;
   static constexpr int bc7 = 0;
+  static constexpr int astc_block_mode = 0;
   static constexpr int fam = -1;
   static constexpr bool multi = false;
   static constexpr int inv_base = -1;
@@ -257,6 +267,7 @@ template <> struct Mode<9> {
   static constexpr int ofs_endpoints = 33;
   static constexpr int ofs_weights = 97;
   static constexpr int bc7 = 7;
+  static constexpr int astc_block_mode = 2114;
   static constexpr int fam = 0;
   static constexpr bool multi = true;
   static constexpr int inv_base = 42;
@@ -282,6 +293,7 @@ template <> struct Mode<10> {
   static constexpr int ofs_endpoints = 20;
   static constexpr int ofs_weights = 65;
   static constexpr int bc7 = 6;
+  static constexpr int astc_block_mode = 578;
   static constexpr int fam = -1;
   static constexpr bool multi = false;
   static constexpr int inv_base = -1;
@@ -307,6 +319,7 @@ template <> struct Mode<11> {
   static constexpr int ofs_endpoints = 21;
   static constexpr int ofs_weights = 66;
   static constexpr int bc7 = 5;
+  static constexpr int astc_block_mode = 1090;
   static constexpr int fam = -1;
   static constexpr bool multi = false;
   static constexpr int inv_base = -1;
@@ -332,6 +345,7 @@ template <> struct Mode<12> {
   static constexpr int ofs_endpoints = 20;
   static constexpr int ofs_weights = 81;
   static constexpr int bc7 = 6;
+  static constexpr int astc_block_mode = 83;
   static constexpr int fam = -1;
   static constexpr bool multi = false;
   static constexpr int inv_base = -1;
@@ -357,6 +371,7 @@ template <> struct Mode<13> {
   static constexpr int ofs_endpoints = 30;
   static constexpr int ofs_weights = 94;
   static constexpr int bc7 = 5;
+  static constexpr int astc_block_mode = 1089;
   static constexpr int fam = -1;
   static constexpr bool multi = false;
   static constexpr int inv_base = -1;
@@ -382,6 +397,7 @@ template <> struct Mode<14> {
   static constexpr int ofs_endpoints = 28;
   static constexpr int ofs_weights = 92;
   static constexpr int bc7 = 6;
+  static constexpr int astc_block_mode = 66;
   static constexpr int fam = -1;
   static constexpr bool multi = false;
   static constexpr int inv_base = -1;
@@ -407,6 +423,7 @@ template <> struct Mode<15> {
   static constexpr int ofs_endpoints = 30;
   static constexpr int ofs_weights = 62;
   static constexpr int bc7 = 6;
+  static constexpr int astc_block_mode = 578;
   static constexpr int fam = -1;
   static constexpr bool multi = false;
   static constexpr int inv_base = -1;
@@ -432,6 +449,7 @@ template <> struct Mode<16> {
   static constexpr int ofs_endpoints = 34;
   static constexpr int ofs_weights = 98;
   static constexpr int bc7 = 7;
+  static constexpr int astc_block_mode = 2114;
   static constexpr int fam = 0;
   static constexpr bool multi = true;
   static constexpr int inv_base = 42;
@@ -457,6 +475,7 @@ template <> struct Mode<17> {
   static constexpr int ofs_endpoints = 29;
   static constexpr int ofs_weights = 61;
   static constexpr int bc7 = 5;
+  static constexpr int astc_block_mode = 1090;
   static constexpr int fam = -1;
   static constexpr bool multi = false;
   static constexpr int inv_base = -1;
@@ -482,6 +501,7 @@ template <> struct Mode<18> {
   static constexpr int ofs_endpoints = 19;
   static constexpr int ofs_weights = 49;
   static constexpr int bc7 = 6;
+  static constexpr int astc_block_mode = 595;
   static constexpr int fam = -1;
   static constexpr bool multi = false;
   static constexpr int inv_base = -1;
@@ -776,6 +796,34 @@ UB_TABLE uint8_t MODE_LUT[128] = {
   11, 0, 10, 3, 11, 17, 12, 7, 11, 18, 10, 5, 11, 14, 12, 9,
   11, 0, 10, 4, 11, 1, 12, 8, 11, 18, 10, 6, 11, 2, 12, 13
 };
+UB_TABLE uint8_t ASTC_QUINT_ENCODE[125] = {
+  0, 1, 2, 3, 4, 8, 9, 10, 11, 12, 16, 17, 18, 19, 20, 24,
+  25, 26, 27, 28, 5, 13, 21, 29, 6, 32, 33, 34, 35, 36, 40, 41,
+  42, 43, 44, 48, 49, 50, 51, 52, 56, 57, 58, 59, 60, 37, 45, 53,
+  61, 14, 64, 65, 66, 67, 68, 72, 73, 74, 75, 76, 80, 81, 82, 83,
+  84, 88, 89, 90, 91, 92, 69, 77, 85, 93, 22, 96, 97, 98, 99, 100,
+  104, 105, 106, 107, 108, 112, 113, 114, 115, 116, 120, 121, 122, 123, 124, 101,
+  109, 117, 125, 30, 102, 103, 70, 71, 38, 110, 111, 78, 79, 46, 118, 119,
+  86, 87, 54, 126, 127, 94, 95, 62, 39, 47, 55, 63, 31
+};
+UB_TABLE uint8_t ASTC_TRIT_ENCODE[243] = {
+  0, 1, 2, 4, 5, 6, 8, 9, 10, 16, 17, 18, 20, 21, 22, 24,
+  25, 26, 3, 7, 11, 19, 23, 27, 12, 13, 14, 32, 33, 34, 36, 37,
+  38, 40, 41, 42, 48, 49, 50, 52, 53, 54, 56, 57, 58, 35, 39, 43,
+  51, 55, 59, 44, 45, 46, 64, 65, 66, 68, 69, 70, 72, 73, 74, 80,
+  81, 82, 84, 85, 86, 88, 89, 90, 67, 71, 75, 83, 87, 91, 76, 77,
+  78, 128, 129, 130, 132, 133, 134, 136, 137, 138, 144, 145, 146, 148, 149, 150,
+  152, 153, 154, 131, 135, 139, 147, 151, 155, 140, 141, 142, 160, 161, 162, 164,
+  165, 166, 168, 169, 170, 176, 177, 178, 180, 181, 182, 184, 185, 186, 163, 167,
+  171, 179, 183, 187, 172, 173, 174, 192, 193, 194, 196, 197, 198, 200, 201, 202,
+  208, 209, 210, 212, 213, 214, 216, 217, 218, 195, 199, 203, 211, 215, 219, 204,
+  205, 206, 96, 97, 98, 100, 101, 102, 104, 105, 106, 112, 113, 114, 116, 117,
+  118, 120, 121, 122, 99, 103, 107, 115, 119, 123, 108, 109, 110, 224, 225, 226,
+  228, 229, 230, 232, 233, 234, 240, 241, 242, 244, 245, 246, 248, 249, 250, 227,
+  231, 235, 243, 247, 251, 236, 237, 238, 28, 29, 30, 60, 61, 62, 92, 93,
+  94, 156, 157, 158, 188, 189, 190, 220, 221, 222, 31, 63, 95, 159, 191, 223,
+  124, 125, 126
+};
 UB_TABLE uint8_t UNQUANT_LUT[696] = {
   0, 0, 0, 0, 0, 0, 0, 0, 0, 255, 51, 204, 102, 153, 0, 255,
   28, 227, 56, 199, 84, 171, 113, 142, 0, 255, 69, 186, 23, 232, 92, 163,
@@ -877,6 +925,22 @@ UB_TABLE uint32_t FAM_BC7_WEIGHT_PRESHIFT_PACKED[61] = {
   0x55555500, 0x55541500, 0x55541500, 0x55540000, 0x55555500, 0x55555500, 0x55540500, 0x00000000,
   0x55540000, 0x55541500, 0x55540000, 0x00000000, 0x55555500, 0x55540000, 0x55555500, 0x5aa95500,
   0x55540000, 0x55540000, 0x55540000, 0x55555500, 0x00000000
+};
+UB_TABLE uint32_t FAM_PAT_PACKED[61] = {
+  0x50505050, 0x40404040, 0x01010101, 0x54505040, 0x05151555, 0x55545450, 0x00010515, 0x01051555,
+  0x50400000, 0x00000105, 0x55544000, 0x01155555, 0x00000115, 0x00005555, 0x55555500, 0x00555555,
+  0x55551501, 0x40545555, 0x00405054, 0x00004050, 0x15050100, 0x50545555, 0x15050501, 0x00404050,
+  0x50545455, 0x14141414, 0x55000055, 0x11111111, 0x00550055, 0x05145041, 0xa5a50000, 0xaa005555,
+  0xaa000055, 0x0000aa55, 0x25252525, 0x94949494, 0x58585858, 0x56560202, 0x92929292, 0x55aa0055,
+  0xa05050a0, 0x00005500, 0x10101010, 0x00010505, 0x50504000, 0x55005555, 0x04040404, 0x55555040,
+  0x50505054, 0x05500005, 0x00005454, 0x15150000, 0x05000005, 0x00005054, 0x55554000, 0x14555555,
+  0x01050505, 0x01015555, 0x01051450, 0x00005455, 0x50505050
+};
+UB_TABLE uint16_t FAM_ASTC_INDEX10[61] = {
+  28, 20, 16, 29, 91, 9, 107, 72, 149, 204, 50, 114, 496, 17, 78, 39,
+  252, 828, 43, 156, 116, 210, 476, 273, 684, 359, 246, 195, 694, 524, 260, 74,
+  32, 156, 183, 15, 745, 0, 335, 902, 254, 36, 48, 61, 137, 161, 183, 226,
+  281, 302, 307, 479, 495, 593, 594, 605, 799, 812, 988, 993, 0
 };
 UB_TABLE uint32_t FAM_BC7_INV_RELPOS_PACKED[91] = {
   0x0000009e, 0x000000ad, 0x000000ad, 0x000000ad, 0x000000ad, 0x000000ad, 0x000000ad, 0x000000ad,

@@ -1,10 +1,11 @@
-"""Generate `csrc/uastc_tables.cuh` from the shared numpy tables.
+"""Generate `csrc/uastc_tables.cuh` from the port's numpy tables.
 
     python -m basisu_rs_tpu_torch.gen_header    # rewrite the header
 
-The header carries every constant the K1 kernel needs: per-mode static
-configuration as `Mode<M>` / `Bc7Mode<B>` / `BiseRange<R>` / `Family<F>`
-traits (compile-time constants, so every bit offset folds), and the
+The header carries every constant the BC7, ASTC and RGBA kernels need:
+per-mode static configuration as `Mode<M>` / `Bc7Mode<B>` / `BiseRange<R>`
+/ `Family<F>` traits (compile-time constants, so every bit offset folds),
+and the
 run-time-indexed tables of `tables.kernel_tables()` as flat arrays.  The
 plain PyTorch version indexes the very same arrays (`tables.device_tables`),
 and tests/test_torch_tables.py checks that the checked-in header equals a
@@ -23,6 +24,7 @@ from .tables import (
     FAMILIES,
     MODES,
     bc7_mode_of,
+    np_tables,
     family_consts,
     family_name,
     inv_relpos_bounds,
@@ -77,6 +79,7 @@ def _mode_fields(cfg) -> dict:
         "ofs_endpoints": (i, ofs["endpoints"]),
         "ofs_weights": (i, ofs["weights"]),
         "bc7": (i, bc7),
+        "astc_block_mode": (i, int(np_tables()["UASTC_TO_ASTC_BLOCK_MODE_13"][cfg.id])),
         "fam": (i, FAMILIES.index(fam) if fam is not None else -1),
         "multi": ("bool", "true" if (cfg.subset_count > 1 or cfg.id == 7) else "false"),
         "inv_base": (i, inv_base),
@@ -92,12 +95,12 @@ def render() -> str:
     i = "int"
     parts = [
         "// Generated by `python -m basisu_rs_tpu_torch.gen_header` from the numpy",
-        "// tables in basisu_rs_tpu/tables/. Do not edit by hand.",
+        "// tables in basisu_rs_tpu_torch/tables/. Do not edit by hand.",
         "#pragma once",
         "#include <stdint.h>",
         "",
         "#ifndef UB_TABLE",
-        '#error "include uastc_bc7.cuh, which defines UB_TABLE"',
+        '#error "include uastc_decode.cuh, which defines UB_TABLE"',
         "#endif",
         "",
         "namespace ub {",
@@ -108,7 +111,8 @@ def render() -> str:
         + ", ".join(f"FAM_{n.upper()} = {k}" for k, n in enumerate(FAMILIES))
         + ";",
         "",
-        "// UASTC modes (ModeCfg + field offsets; bc7 = UASTC_TO_BC7_MODES[id]).",
+        "// UASTC modes (ModeCfg + field offsets; bc7 = UASTC_TO_BC7_MODES[id],",
+        "// astc_block_mode = UASTC_TO_ASTC_BLOCK_MODE_13[id]).",
         "template <int M> struct Mode;",
     ]
     parts += [_traits("Mode", cfg.id, _mode_fields(cfg)) for cfg in MODES]

@@ -22,11 +22,13 @@ from ..tables import (
     ModeCfg,
     bc7_mode_of,
     device_tables,
+    fam_bc7_anchors_before,
+    fam_bc7_inv_relpos_packed,
+    get_family,
     kernel_tables,
-    ref,
 )
-from .bits import LaneWriter, bytes_from_lanes, extract_bit_dyn, fl_div255, lane_shape, lanes_from_bytes, mask
-from .uastc_decode import assemble_endpoint_pairs, decode_fields, decode_mode8_rgba
+from .bits import LaneWriter, apply_rows, extract_bit_dyn, fl_div255, lane_shape, mask
+from .uastc_decode import assemble_endpoint_pairs, decode_fields, decode_mode8_rgba, fam_row
 
 I64 = torch.int64
 
@@ -227,8 +229,8 @@ def uastc_to_bc7_mode(cfg: ModeCfg, lanes):
     e_hi = [[None] * 4 for _ in range(nsub7)]
 
     if nsub7 != 1:
-        fam_name = ref.get_family(cfg).name
-        row = layout.fam_base[fam_name] + f.pat
+        fam_name = get_family(cfg).name
+        row = fam_row(fam_name, f.pat)
         bc7_pat = tables["FAM_BC7_INDEX"][row]
         pat_packed = tables["FAM_BC7_PAT_PACKED"][row]
         subs7 = [(pat_packed >> (2 * i)) & 3 for i in range(16)]
@@ -251,7 +253,7 @@ def uastc_to_bc7_mode(cfg: ModeCfg, lanes):
         # (bc7.rs:171-195).  Subset 0's anchor (texel 0) never has it set;
         # for j >= 1 the driving bit is the raw stored MSB, read straight
         # from the block at a per-pattern position.
-        relpos_np = ref.fam_bc7_inv_relpos_packed(fam_name, cfg.weight_bits)
+        relpos_np = fam_bc7_inv_relpos_packed(fam_name, cfg.weight_bits)
         base_w = cfg.field_offsets["weights"]
         inv_packed = tables["FAM_BC7_INV_RELPOS_PACKED"][
             layout.inv_relpos_base[(fam_name, cfg.weight_bits)] + f.pat
@@ -350,7 +352,7 @@ def uastc_to_bc7_mode(cfg: ModeCfg, lanes):
     else:
         # texel i lands in the static window [ofs + wb7*i - maxab_i,
         # ofs + wb7*i + wb7); a per-pattern pre-shift places it
-        ab_tab = ref.fam_bc7_anchors_before(fam_name)
+        ab_tab = fam_bc7_anchors_before(fam_name)
         ps_packed = tables["FAM_BC7_WEIGHT_PRESHIFT_PACKED"][row]
         for i in range(16):
             col = ab_tab[:, i]
@@ -368,13 +370,4 @@ def transcode_rows(mode: int, blocks, index, out, err) -> None:
     """Plain version of one K1 launch: transcode blocks[index] (all UASTC
     mode `mode`) into out[index] / err[index], in place.  index=None means
     every row."""
-    rows = blocks if index is None else blocks[index]
-    lanes = lanes_from_bytes(rows, 4)
-    words, e = uastc_to_bc7_mode(MODES[mode], lanes)
-    res = bytes_from_lanes(torch.stack(words, dim=-1))
-    if index is None:
-        out.copy_(res)
-        err.copy_(e)
-    else:
-        out[index] = res
-        err[index] = e
+    apply_rows(lambda lanes: uastc_to_bc7_mode(MODES[mode], lanes), blocks, index, out, err)

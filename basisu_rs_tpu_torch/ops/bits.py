@@ -53,6 +53,21 @@ def bytes_from_lanes(lanes: torch.Tensor) -> torch.Tensor:
     return out.to(torch.uint8).reshape(lanes.shape[0], 4 * lanes.shape[1])
 
 
+def apply_rows(fn, blocks, index, out, err) -> None:
+    """Plain version of one per-mode kernel launch: fn(int64 [M,4] words) ->
+    (output words, err) over blocks[index] (every row when index is None),
+    written into the uint8 rows out[index] and err[index] in place."""
+    rows = blocks if index is None else blocks[index]
+    words, e = fn(lanes_from_bytes(rows, 4))
+    res = bytes_from_lanes(torch.stack(words, dim=-1))
+    if index is None:
+        out.copy_(res)
+        err.copy_(e)
+    else:
+        out[index] = res
+        err[index] = e
+
+
 def extract(lanes, offset: int, count: int):
     """Static-offset extract of `count` bits at `offset`."""
     assert 0 <= count <= 32

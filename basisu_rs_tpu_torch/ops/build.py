@@ -1,15 +1,21 @@
-"""Build the CUDA sources with nvcc at first use and bind them with ctypes.
+"""Build the package's native sources at first use and bind them with ctypes.
 
-`csrc/*.cu` compiles into one shared library with a plain C interface
-under `basisu_rs_tpu_torch/build/` (listed in .gitignore), named by a hash
-of the sources and flags, so a changed source rebuilds and an unchanged one
-loads the library already built.  The build writes nvcc's output, including
-the `-Xptxas -v` register and spill report of every kernel, beside the
-library (`build_log()`, `ptxas_report()`).
+Every library lands under `basisu_rs_tpu_torch/build/` (listed in
+.gitignore), named by a hash of its sources and flags, so a changed source
+rebuilds and an unchanged one loads the library already built; a build
+writes a temporary file and renames it into place, so a failed or
+concurrent build never leaves a partial library behind.
+
+`csrc/*.cu` compiles with nvcc into one library with a plain C interface:
+each `.cu` to an object in its own nvcc process, all started together, and
+one nvcc then links them.  The build writes nvcc's output, including the
+`-Xptxas -v` register and spill report of every kernel, beside the library
+(`build_log()`, `ptxas_report()`).  `host_library()` builds one host C++
+source with g++ (the container's CRC-16).
 
 Nothing here runs at import time: `load()` is called by the kernel wrapper
-on the first CUDA launch.  There is no fallback: a missing nvcc or a failed
-build raises.
+on the first CUDA launch.  There is no fallback: a missing compiler or a
+failed build raises.
 """
 
 from __future__ import annotations
@@ -31,9 +37,13 @@ BUILD = PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+GXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+
+# target -> C launch entry point of its per-mode kernels (csrc/uastc_<target>.cu)
+LAUNCH = {"bc7": "uastc_bc7_launch", "astc": "uastc_astc_launch", "rgba": "uastc_rgba_launch"}
 
 
 def nvcc_path() -> str:
@@ -53,36 +63,81 @@ def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
 
 
-def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    cus, cuhs = _sources()
-    for p in cus + cuhs:
+def _library_path(prefix: str, flags, sources) -> Path:
+    """BUILD/<prefix>_<hash>.so, the hash over the flags and every source's
+    name and bytes."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for p in sources:
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    return h.hexdigest()[:16]
+    return BUILD / f"{prefix}_{h.hexdigest()[:16]}.so"
+
+
+def _make_library(so: Path, make) -> None:
+    """make(tmp) writes the library to tmp and returns (log text, ok); on
+    success tmp is renamed to `so`, on failure removed and the log raised."""
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    text, ok = make(tmp)
+    if not ok:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"build of {so.name} failed:\n{text}")
+    os.replace(tmp, so)
+
+
+def _run(cmd) -> tuple[str, int]:
+    res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return " ".join(cmd) + "\n" + res.stdout, res.returncode
 
 
 def _paths():
-    tag = source_hash()
-    return BUILD / f"libbasisu_cuda_{tag}.so", BUILD / f"libbasisu_cuda_{tag}.log"
+    cus, cuhs = _sources()
+    so = _library_path("libbasisu_cuda", NVCC_FLAGS, cus + cuhs)
+    return so, so.with_suffix(".log")
 
 
 def build() -> tuple[Path, float]:
     """Compile csrc/*.cu; returns (library path, seconds).  Raises on failure."""
     so, log = _paths()
-    BUILD.mkdir(parents=True, exist_ok=True)
     cus, _ = _sources()
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, cus)]
+    nvcc = nvcc_path()
+    objs = [so.with_name(f"{so.stem}.{cu.stem}.{os.getpid()}.o") for cu in cus]
+
+    def make(tmp):
+        compiles = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o), str(cu)] for cu, o in zip(cus, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in compiles]
+        steps = [(" ".join(c) + "\n" + p.communicate()[0], p.returncode) for c, p in zip(compiles, procs)]
+        if all(rc == 0 for _, rc in steps):
+            steps.append(_run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+                               *map(str, objs)]))
+        for o in objs:
+            o.unlink(missing_ok=True)
+        text = "".join(t for t, _ in steps)
+        log.write_text(text)
+        return text, all(rc == 0 for _, rc in steps)
+
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log.write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
-    os.replace(tmp, so)
-    return so, seconds
+    _make_library(so, make)
+    return so, time.perf_counter() - t0
+
+
+@lru_cache(maxsize=None)
+def host_library(source: Path) -> ctypes.CDLL:
+    """One host C++ source built with g++ (GXX_FLAGS) at first use and
+    loaded; raises when g++ is missing or fails.  The caller binds the
+    argument types."""
+    so = _library_path(f"lib{source.stem}", GXX_FLAGS, [source])
+    if not so.exists():
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError(f"g++ not found: {source.name} is built with g++")
+
+        def make(tmp):
+            text, rc = _run([gxx, *GXX_FLAGS, "-o", str(tmp), str(source)])
+            return text, rc == 0
+
+        _make_library(so, make)
+    return ctypes.CDLL(str(so))
 
 
 @lru_cache(maxsize=None)
@@ -92,16 +147,18 @@ def load() -> ctypes.CDLL:
     if not so.exists():
         build()
     lib = ctypes.CDLL(str(so))
-    lib.uastc_bc7_launch.restype = ctypes.c_int
-    lib.uastc_bc7_launch.argtypes = [
-        ctypes.c_int,  # mode
-        ctypes.c_void_p,  # in
-        ctypes.c_void_p,  # index (or None)
-        ctypes.c_int,  # n
-        ctypes.c_void_p,  # out
-        ctypes.c_void_p,  # err
-        ctypes.c_void_p,  # stream
-    ]
+    for name in LAUNCH.values():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.c_int,  # mode
+            ctypes.c_void_p,  # in
+            ctypes.c_void_p,  # index (or None)
+            ctypes.c_int,  # n
+            ctypes.c_void_p,  # out
+            ctypes.c_void_p,  # err
+            ctypes.c_void_p,  # stream
+        ]
     return lib
 
 
@@ -113,19 +170,19 @@ def build_log() -> str:
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
-_MODE = re.compile(r"uastc_bc7_kernelILi(\d+)EE")
+_KERNEL = re.compile(r"\d(Bc7|Astc|Rgba)ILi(\d+)E")
 
 
-def ptxas_report() -> dict:
-    """{mode: {"registers", "stack", "spill_stores", "spill_loads"}} parsed
-    from the `-Xptxas -v` lines of the build log."""
+def parse_ptxas(text: str) -> dict:
+    """{(target, mode): {"registers", "stack", "spill_stores", "spill_loads"}}
+    from the `-Xptxas -v` lines of an nvcc log (kernels uastc_kernel<Op<M>>)."""
     out: dict = {}
     cur = None
-    for line in build_log().splitlines():
+    for line in text.splitlines():
         m = _ENTRY.search(line)
         if m:
-            mm = _MODE.search(m.group(1))
-            cur = int(mm.group(1)) if mm else None
+            k = _KERNEL.search(m.group(1))
+            cur = (k.group(1).lower(), int(k.group(2))) if k else None
             if cur is not None:
                 out[cur] = {}
             continue
@@ -138,3 +195,8 @@ def ptxas_report() -> dict:
         if m:
             out[cur]["registers"] = int(m.group(1))
     return out
+
+
+def ptxas_report() -> dict:
+    """parse_ptxas() of the current build's log."""
+    return parse_ptxas(build_log())

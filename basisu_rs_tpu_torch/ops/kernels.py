@@ -1,40 +1,51 @@
-"""K1 wrappers: the hand-written CUDA kernel of one UASTC mode, behind a
-PyTorch call.
+"""Kernel wrappers: the hand-written CUDA kernel of one (target, UASTC mode)
+behind a PyTorch call.
 
-Counterpart of `basisu_rs_tpu/ops/pallas_kernels.py::pallas_mode_kernel`
-for target "bc7": `bc7_mode_kernel(mode)(blocks) -> (out, err)`.  Blocks
-travel as uint8 `[N, 16]` rows (the same 16 bytes as the JAX package's
-uint32 `[N, 4]` words; torch's uint32 has too few operators to be a word
-type), and an optional int64 `index` names the rows of that mode, which the
-kernel reads and writes in place.
+Counterpart of `basisu_rs_tpu/ops/pallas_kernels.py::pallas_mode_kernel`:
+`mode_kernel(target, mode)(blocks) -> (out, err)` for the targets "bc7"
+(K1), "astc" (K2) and "rgba" (K3).  Blocks travel as uint8 `[N, 16]` rows
+(the same 16 bytes as the JAX package's uint32 `[N, 4]` words; torch's
+uint32 has too few operators to be a word type), the output as uint8
+`[N, OUT_BYTES[target]]` rows, and an optional int64 `index` names the rows
+of that mode, which the kernel reads and writes in place.  The wrapper
+checks that every index lies in [0, N) (one host sync) unless the caller
+built the index itself and passes `check_index=False`, as the dispatch does.
 
-A tensor on the CPU goes to the plain version (`ops/bc7.py`); a CUDA tensor
-goes to the kernel, or the call raises.  Each wrapper counts its kernel
-launches (`launches`) and its plain-version calls (`plain_calls`).
+A tensor on the CPU goes to the plain version (`ops/{bc7,astc,rgba}.py`); a
+CUDA tensor goes to the kernel, or the call raises.  Each wrapper counts its
+kernel launches (`launches`) and its plain-version calls (`plain_calls`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import bc7, build
+from . import astc, bc7, build, rgba
 
 N_MODES = 19
+TARGETS = ("bc7", "astc", "rgba")
+OUT_BYTES = {"bc7": 16, "astc": 16, "rgba": 64}
+# the plain PyTorch version of each target's launch (transcode_rows)
+PLAIN = {"bc7": bc7.transcode_rows, "astc": astc.transcode_rows, "rgba": rgba.transcode_rows}
 
 
-class Bc7ModeKernel:
-    """UASTC mode `mode` -> BC7, one launch of `uastc_bc7_kernel<mode>`."""
+class ModeKernel:
+    """UASTC mode `mode` -> `target`, one launch of `uastc_kernel<Op<mode>>`."""
 
-    def __init__(self, mode: int):
+    def __init__(self, target: str, mode: int):
+        self.target = target
         self.mode = mode
+        self.out_bytes = OUT_BYTES[target]
         self.launches = 0
         self.plain_calls = 0
 
-    def __call__(self, blocks, index=None, out=None, err=None):
+    def __call__(self, blocks, index=None, out=None, err=None, check_index=True):
         """Transcode blocks[index] (every row when index is None) into
         out[index] / err[index]; allocates out/err (torch.empty) when not
         given.  Rows outside `index` are left as they were.  Every index
-        value must lie in [0, N).  Returns (out uint8 [N,16], err bool [N])."""
+        value must lie in [0, N): checked here unless check_index is False,
+        since the kernel reads and writes through the index unchecked.
+        Returns (out uint8 [N, out_bytes], err bool [N])."""
         dev = blocks.device
         if blocks.dtype != torch.uint8 or blocks.dim() != 2 or blocks.shape[1] != 16:
             raise ValueError(f"blocks must be uint8 [N, 16], got {blocks.dtype} {tuple(blocks.shape)}")
@@ -42,11 +53,12 @@ class Bc7ModeKernel:
             raise ValueError("blocks must be contiguous")
         n_rows = blocks.shape[0]
         if out is None:
-            out = torch.empty_like(blocks)
+            out = torch.empty(n_rows, self.out_bytes, dtype=torch.uint8, device=dev)
         if err is None:
             err = torch.empty(n_rows, dtype=torch.bool, device=dev)
-        if out.dtype != torch.uint8 or out.shape != blocks.shape or out.device != dev or not out.is_contiguous():
-            raise ValueError("out must be a contiguous uint8 tensor shaped and placed like blocks")
+        if (out.dtype != torch.uint8 or out.shape != (n_rows, self.out_bytes) or out.device != dev
+                or not out.is_contiguous()):
+            raise ValueError(f"out must be a contiguous uint8 [N, {self.out_bytes}] tensor on the blocks' device")
         if err.dtype != torch.bool or err.shape != (n_rows,) or err.device != dev or not err.is_contiguous():
             raise ValueError("err must be a contiguous bool [N] tensor on the blocks' device")
         if index is not None:
@@ -56,13 +68,17 @@ class Bc7ModeKernel:
 
         if n == 0:
             return out, err
+        if index is not None and check_index:
+            lo, hi = (int(v) for v in torch.aminmax(index))
+            if lo < 0 or hi >= n_rows:
+                raise ValueError(f"index values must lie in [0, {n_rows}), got [{lo}, {hi}]")
         if dev.type == "cpu":
             self.plain_calls += 1
-            bc7.transcode_rows(self.mode, blocks, index, out, err)
+            PLAIN[self.target](self.mode, blocks, index, out, err)
         elif dev.type == "cuda":
             self._launch(blocks, index, n, out, err)
         else:
-            raise ValueError(f"no BC7 kernel for device {dev}")
+            raise ValueError(f"no {self.target} kernel for device {dev}")
         return out, err
 
     def _launch(self, blocks, index, n, out, err) -> None:
@@ -71,10 +87,10 @@ class Bc7ModeKernel:
         for t in (blocks, out):
             if t.data_ptr() % 16:
                 raise ValueError("blocks and out must be 16-byte aligned")
-        lib = build.load()
+        launch = getattr(build.load(), build.LAUNCH[self.target])
         with torch.cuda.device(blocks.device):
             stream = torch.cuda.current_stream(blocks.device).cuda_stream
-            rc = lib.uastc_bc7_launch(
+            rc = launch(
                 self.mode,
                 blocks.data_ptr(),
                 None if index is None else index.data_ptr(),
@@ -84,26 +100,29 @@ class Bc7ModeKernel:
                 stream,
             )
         if rc != 0:
-            raise RuntimeError(f"uastc_bc7_kernel<{self.mode}> launch failed: cudaError_t {rc}")
+            raise RuntimeError(f"{self.target} kernel of mode {self.mode}: launch failed, cudaError_t {rc}")
         self.launches += 1
 
 
-_KERNELS = tuple(Bc7ModeKernel(m) for m in range(N_MODES))
+_KERNELS = {t: tuple(ModeKernel(t, m) for m in range(N_MODES)) for t in TARGETS}
 
 
-def bc7_mode_kernel(mode: int) -> Bc7ModeKernel:
-    return _KERNELS[mode]
+def mode_kernel(target: str, mode: int) -> ModeKernel:
+    return _KERNELS[target][mode]
 
 
-def launch_counts() -> list:
-    return [k.launches for k in _KERNELS]
+def launch_counts() -> dict:
+    """{target: [launches of mode 0..18]}"""
+    return {t: [k.launches for k in ks] for t, ks in _KERNELS.items()}
 
 
-def plain_call_counts() -> list:
-    return [k.plain_calls for k in _KERNELS]
+def plain_call_counts() -> dict:
+    """{target: [plain-version calls of mode 0..18]}"""
+    return {t: [k.plain_calls for k in ks] for t, ks in _KERNELS.items()}
 
 
 def reset_counts() -> None:
-    for k in _KERNELS:
-        k.launches = 0
-        k.plain_calls = 0
+    for ks in _KERNELS.values():
+        for k in ks:
+            k.launches = 0
+            k.plain_calls = 0

@@ -1,9 +1,10 @@
 """Mode-specialized UASTC block field decoding, in PyTorch.
 
-Port of `basisu_rs_tpu/ops/uastc_decode.py` (the parts that
-`decode_fields` and `decode_mode8_rgba` reach).  Each function takes a
-static `ModeCfg` plus an int64 `[N, 4]` word tensor (see bits.py) and
-returns per-block int64 field tensors.  Every bit offset is a Python int
+Port of `basisu_rs_tpu/ops/uastc_decode.py`: `decode_fields`, the weight
+unquantization, the factored ASTC lerp, the texel -> subset map and
+`decode_mode8_rgba`.  Each function takes a static `ModeCfg` plus an int64
+`[N, 4]` word tensor (see bits.py) and returns per-block int64 field
+tensors.  Every bit offset is a Python int
 fixed by the mode; the only dynamic offsets are the weight positions of
 multi-subset modes, which depend on the block's pattern index.
 """
@@ -14,7 +15,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..tables import BISE_RANGES, LA, MODE8_RGBA_OFFSET, ModeCfg, get_family, kernel_tables, ref
+from ..tables import BISE_RANGES, LA, MODE8_RGBA_OFFSET, ModeCfg, fam_anchors_before, get_family, kernel_tables
 from .bits import extract, lane_shape, mask
 
 
@@ -137,7 +138,7 @@ def decode_pattern(cfg: ModeCfg, lanes):
     return torch.clamp(pat, max=cfg.pattern_count - 1), err
 
 
-def _fam_row(fam_name: str, pat):
+def fam_row(fam_name: str, pat):
     return kernel_tables()[1].fam_base[fam_name] + pat
 
 
@@ -147,7 +148,7 @@ def decode_anchors(cfg: ModeCfg, pat, tables):
     fam = get_family(cfg)
     if fam is None or cfg.subset_count == 1 and cfg.id != 7:
         return [torch.zeros_like(pat)]
-    packed = tables["FAM_ANCHORS_PACKED"][_fam_row(fam.name, pat)]
+    packed = tables["FAM_ANCHORS_PACKED"][fam_row(fam.name, pat)]
     return [(packed >> (4 * k)) & 15 for k in range(fam.nsub)]
 
 
@@ -176,8 +177,8 @@ def decode_weights(cfg: ModeCfg, lanes, pat, tables):
     # extract and a small variable right shift by (maxab_i - ab_i).
     assert planes == 1
     fam = get_family(cfg)
-    ab_tab = ref.fam_anchors_before(fam.name)  # [count, 16] numpy
-    ab_packed = tables["FAM_ANCHORS_BEFORE_PACKED"][_fam_row(fam.name, pat)]
+    ab_tab = fam_anchors_before(fam.name)  # [count, 16] numpy
+    ab_packed = tables["FAM_ANCHORS_BEFORE_PACKED"][fam_row(fam.name, pat)]
     abs_: list = []
     for i in range(16):
         lo, hi = int(ab_tab[:, i].min()), int(ab_tab[:, i].max())
@@ -194,6 +195,49 @@ def decode_weights(cfg: ModeCfg, lanes, pat, tables):
             raw = win >> (maxab - ab)
         weights.append(raw & wmask)
     return weights, anchors
+
+
+def unquant_weight(w, weight_bits: int):
+    """Quantized weight -> 0..64 scale, closed forms of the reference LUTs
+    (uastc.rs:697-719)."""
+    if weight_bits == 1:
+        return w * 64
+    if weight_bits == 2:
+        return 21 * w + (w >= 2).to(torch.int64)
+    if weight_bits == 3:
+        return 9 * w + (w >= 4).to(torch.int64)
+    if weight_bits == 4:
+        # correction (w>=4) + 2*(w>=8) + (w>=12) == q + (q>>1) for q = w>>2
+        q = w >> 2
+        return 4 * w + q + (q >> 1)
+    if weight_bits == 5:
+        return 2 * w + 2 * (w >= 16).to(torch.int64)
+    raise ValueError(weight_bits)
+
+
+def interp_hoist(l, h):
+    """Per-block halves of the factored ASTC lerp: (L0, D) with
+    L0 = 257*64*l + 32 and D = 257*(h-l), as shift-adds."""
+    d = h - l
+    return (l << 14) + (l << 6) + 32, (d << 8) + d
+
+
+def interp_eval(L0, D, w):
+    """(L0 + D*w) >> 14, the per-texel half of the factored ASTC lerp
+    ((l*257)*(64-w) + (h*257)*w + 32) >> 14 (uastc.rs:218-235).  The sum
+    lies in [32, 4194272]: int32-safe and non-negative, so the shift is a
+    floor."""
+    return (L0 + D * w) >> 14
+
+
+def subsets_for_texels(cfg: ModeCfg, pat, tables):
+    """texel -> subset assignment, list of 16 int64[N] (uastc.rs:368-376).
+    Mode 1 has a family (for BC7) but a single UASTC subset: all zero."""
+    fam = get_family(cfg)
+    if fam is None or cfg.id == 1:
+        return [torch.zeros_like(pat)] * 16
+    packed = tables["FAM_PAT_PACKED"][fam_row(fam.name, pat)]
+    return [(packed >> (2 * i)) & 3 for i in range(16)]
 
 
 def assemble_endpoint_pairs(cfg: ModeCfg, endpoints):

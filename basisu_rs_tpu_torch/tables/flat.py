@@ -1,57 +1,36 @@
-"""Constant tables of the transcoder, shared with the JAX package.
+"""The flat kernel layout of the constant tables.
 
-The JAX package's `basisu_rs_tpu/tables/` directory is pure numpy and
-imports only its own siblings, but importing it as `basisu_rs_tpu.tables`
-would run `basisu_rs_tpu/__init__.py`, which imports JAX.  So this module
-loads that directory by path, under the private name
-`basisu_rs_tpu_torch._ref_tables`: one source of truth, no copied tables,
-and no JAX.
-
-The transcoder has no learned weights; its state is these constant tables.
-`kernel_tables()` lays out every table the UASTC->BC7 path indexes at run
-time as flat arrays (one array per kind, families and ranges concatenated,
-with static base offsets).  The same layout feeds both the plain PyTorch
-version (`device_tables`) and the generated CUDA header
+`kernel_tables()` lays out every table the UASTC -> BC7 / ASTC / RGBA paths
+index at run time as flat arrays (one array per kind, families and ranges
+concatenated, with static base offsets).  The same layout feeds both the
+plain PyTorch versions (`device_tables`) and the generated CUDA header
 (`gen_header.py` -> `csrc/uastc_tables.cuh`).
 """
 
 from __future__ import annotations
 
-import importlib.util
-import sys
 from dataclasses import dataclass
 from functools import lru_cache
-from pathlib import Path
 
 import numpy as np
 import torch
 
-_REF_DIR = Path(__file__).resolve().parents[1] / "basisu_rs_tpu" / "tables"
-_REF_NAME = __name__.rpartition(".")[0] + "._ref_tables"
-
-
-def _load_ref():
-    if _REF_NAME in sys.modules:
-        return sys.modules[_REF_NAME]
-    spec = importlib.util.spec_from_file_location(
-        _REF_NAME, _REF_DIR / "__init__.py", submodule_search_locations=[str(_REF_DIR)]
-    )
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[_REF_NAME] = mod
-    spec.loader.exec_module(mod)
-    return mod
-
-
-ref = _load_ref()
-
-MODES = ref.MODES
-BC7_MODES = ref.BC7_MODES
-BISE_RANGES = ref.BISE_RANGES
-LA = ref.LA
-MODE8_RGBA_OFFSET = ref.MODE8_RGBA_OFFSET
-ModeCfg = ref.ModeCfg
-get_family = ref.get_family
-np_tables = ref.np_tables
+from . import (
+    BC7_MODES,
+    BISE_RANGES,
+    MODES,
+    _families,
+    bc7_mode_5_optimal_packed,
+    bc7_mode_6_optimal_packed,
+    fam_anchors_before,
+    fam_anchors_before_packed,
+    fam_bc7_anchors_before,
+    fam_bc7_inv_relpos_packed,
+    fam_bc7_weight_preshift_packed,
+    get_family,
+    np_tables,
+    unquant_lut,
+)
 
 INVALID_MODE = 19
 
@@ -66,18 +45,23 @@ _FAM_KINDS = (
     "BC7_PAT_PACKED",
     "PERM_PACKED",
     "BC7_WEIGHT_PRESHIFT_PACKED",
+    "PAT_PACKED",
+    "ASTC_INDEX10",
 )
+_FAM_DTYPE = {"BC7_INDEX": np.uint8, "ASTC_INDEX10": np.uint16}
 
 
 def _fam_arrays(name: str) -> dict:
-    fam = ref._families()[name]
+    fam = _families()[name]
     return {
         "ANCHORS_PACKED": fam.anchors_packed,
-        "ANCHORS_BEFORE_PACKED": ref.fam_anchors_before_packed(name),
+        "ANCHORS_BEFORE_PACKED": fam_anchors_before_packed(name),
         "BC7_INDEX": fam.bc7_index,
         "BC7_PAT_PACKED": fam.bc7_pat_packed,
         "PERM_PACKED": fam.perm_packed,
-        "BC7_WEIGHT_PRESHIFT_PACKED": ref.fam_bc7_weight_preshift_packed(name),
+        "BC7_WEIGHT_PRESHIFT_PACKED": fam_bc7_weight_preshift_packed(name),
+        "PAT_PACKED": fam.pat_packed,  # texel -> UASTC subset, 2 bits a texel
+        "ASTC_INDEX10": fam.astc_index10,
     }
 
 
@@ -107,14 +91,16 @@ class Layout:
 
 @lru_cache(maxsize=None)
 def kernel_tables():
-    """(arrays, layout): every run-time-indexed table of the BC7 path as
-    flat numpy arrays (dtype = the CUDA header's element type)."""
-    arrays: dict = {"MODE_LUT": np_tables()["MODE_LUT"].astype(np.uint8)}
+    """(arrays, layout): every run-time-indexed table of the BC7, ASTC and
+    RGBA paths as flat numpy arrays (dtype = the CUDA header's element
+    type)."""
+    t = np_tables()
+    arrays: dict = {k: t[k].astype(np.uint8) for k in ("MODE_LUT", "ASTC_QUINT_ENCODE", "ASTC_TRIT_ENCODE")}
 
     unquant, unquant_base, n = [], {}, 0
     for r, rng in enumerate(BISE_RANGES):
         if rng.trits or rng.quints:
-            lut = ref.bise.unquant_lut(r)
+            lut = unquant_lut(r)
             unquant_base[r] = n
             unquant.append(lut)
             n += len(lut)
@@ -124,12 +110,11 @@ def kernel_tables():
     per_kind = {k: [] for k in _FAM_KINDS}
     for name in FAMILIES:
         fam_base[name] = n
-        n += ref._families()[name].count
+        n += _families()[name].count
         for k, a in _fam_arrays(name).items():
             per_kind[k].append(a)
     for k in _FAM_KINDS:
-        dtype = np.uint8 if k == "BC7_INDEX" else np.uint32
-        arrays["FAM_" + k] = np.concatenate(per_kind[k]).astype(dtype)
+        arrays["FAM_" + k] = np.concatenate(per_kind[k]).astype(_FAM_DTYPE.get(k, np.uint32))
 
     relpos, inv_base, n = [], {}, 0
     for cfg in MODES:
@@ -138,22 +123,22 @@ def kernel_tables():
         if cfg.id == 8 or bc7.subset_count == 1 or (name, cfg.weight_bits) in inv_base:
             continue
         inv_base[(name, cfg.weight_bits)] = n
-        a = ref.fam_bc7_inv_relpos_packed(name, cfg.weight_bits)
+        a = fam_bc7_inv_relpos_packed(name, cfg.weight_bits)
         relpos.append(a)
         n += len(a)
     arrays["FAM_BC7_INV_RELPOS_PACKED"] = np.concatenate(relpos).astype(np.uint32)
 
-    arrays["BC7_MODE_5_OPTIMAL_PACKED"] = ref.bc7_mode_5_optimal_packed().astype(np.uint16)
-    arrays["BC7_MODE_6_OPTIMAL_PACKED"] = ref.bc7_mode_6_optimal_packed().astype(np.uint16)
+    arrays["BC7_MODE_5_OPTIMAL_PACKED"] = bc7_mode_5_optimal_packed().astype(np.uint16)
+    arrays["BC7_MODE_6_OPTIMAL_PACKED"] = bc7_mode_6_optimal_packed().astype(np.uint16)
     return arrays, Layout(fam_base, unquant_base, inv_base)
 
 
 @lru_cache(maxsize=None)
 def family_consts(name: str) -> dict:
     """Static per-family constants (the `Family<F>` traits of the header)."""
-    fam = ref._families()[name]
-    ab_lo, ab_hi = _pack_cols(ref.fam_anchors_before(name))
-    b_lo, b_hi = _pack_cols(ref.fam_bc7_anchors_before(name))
+    fam = _families()[name]
+    ab_lo, ab_hi = _pack_cols(fam_anchors_before(name))
+    b_lo, b_hi = _pack_cols(fam_bc7_anchors_before(name))
     return {
         "count": fam.count,
         "n_anchors": int(fam.anchors.shape[1]),
@@ -168,7 +153,7 @@ def family_consts(name: str) -> dict:
 def inv_relpos_bounds(name: str, weight_bits: int) -> list:
     """Static (min, max) of the relative anchor-MSB bit position for BC7
     subsets 1 and 2 over the family's patterns."""
-    a = ref.fam_bc7_inv_relpos_packed(name, weight_bits)
+    a = fam_bc7_inv_relpos_packed(name, weight_bits)
     out = []
     for s in (1, 2):
         rel = (a >> (8 * (s - 1))) & 63

@@ -1,11 +1,13 @@
-"""PyTorch port: the K1 kernel's own per-block source, compiled for the host.
+"""PyTorch port: the kernels' own per-block sources, compiled for the host.
 
-`basisu_rs_tpu_torch/csrc/uastc_bc7.cuh` holds the kernel's per-block logic
-behind a macro shim, so g++ builds the exact code the CUDA kernel runs.  This
-test builds it into a temporary directory, calls it over ctypes and holds
-it against the plain PyTorch version (tolerance 0): shift, signedness and
+`basisu_rs_tpu_torch/csrc/uastc_{bc7,astc,rgba}.cuh` (over the shared
+`uastc_decode.cuh`) hold the per-block logic of K1, K2 and K3 behind a macro
+shim, so g++ builds the exact code the CUDA kernels run.  This test builds
+them into a temporary directory, calls them over ctypes and holds every mode
+against the plain PyTorch versions (tolerance 0): shift, signedness and
 table-index faults show here without a card.  The package never loads this
-build; it skips only when g++ is absent."""
+build; it skips only when g++ is absent.  The last test checks the ptxas
+report parser of `ops/build.py` on a canned nvcc log."""
 
 import ctypes
 import shutil
@@ -16,87 +18,142 @@ import pytest
 import torch
 
 from basisu_rs_tpu.tables import np_tables
-from basisu_rs_tpu_torch.ops import bc7, build
+from basisu_rs_tpu_torch.ops import astc, bc7, build, rgba
 
 HOST_ENTRY = r"""
 #include <string.h>
+#include "uastc_astc.cuh"
 #include "uastc_bc7.cuh"
+#include "uastc_rgba.cuh"
 
-template <int M>
+template <int M> struct Bc7 {
+  static constexpr int kOut = 16;
+  static bool run(const uint32_t (&l)[4], uint32_t (&o)[4]) { return ub::uastc_to_bc7<M>(l, o); }
+};
+template <int M> struct Astc {
+  static constexpr int kOut = 16;
+  static bool run(const uint32_t (&l)[4], uint32_t (&o)[4]) { return ub::uastc_to_astc<M>(l, o); }
+};
+template <int M> struct Rgba {
+  static constexpr int kOut = 64;
+  static bool run(const uint32_t (&l)[4], uint32_t (&o)[16]) { return ub::uastc_to_rgba<M>(l, o); }
+};
+
+template <class Op>
 static void run(const uint8_t* in, long long n, uint8_t* out, uint8_t* err) {
   for (long long t = 0; t < n; ++t) {
-    uint32_t l[4], o[4];
+    uint32_t l[4], o[Op::kOut / 4];
     memcpy(l, in + 16 * t, 16);
-    err[t] = ub::uastc_to_bc7<M>(l, o) ? 1 : 0;
-    memcpy(out + 16 * t, o, 16);
+    err[t] = Op::run(l, o) ? 1 : 0;
+    memcpy(out + Op::kOut * t, o, Op::kOut);
   }
 }
 
 typedef void (*RunFn)(const uint8_t*, long long, uint8_t*, uint8_t*);
-static const RunFn kRun[19] = {run<0>,  run<1>,  run<2>,  run<3>,  run<4>,  run<5>,  run<6>,
-                               run<7>,  run<8>,  run<9>,  run<10>, run<11>, run<12>, run<13>,
-                               run<14>, run<15>, run<16>, run<17>, run<18>};
+#define TABLE(OP) {run<OP<0>>,  run<OP<1>>,  run<OP<2>>,  run<OP<3>>,  run<OP<4>>,  \
+                   run<OP<5>>,  run<OP<6>>,  run<OP<7>>,  run<OP<8>>,  run<OP<9>>,  \
+                   run<OP<10>>, run<OP<11>>, run<OP<12>>, run<OP<13>>, run<OP<14>>, \
+                   run<OP<15>>, run<OP<16>>, run<OP<17>>, run<OP<18>>}
+static const RunFn kRun[3][19] = {TABLE(Bc7), TABLE(Astc), TABLE(Rgba)};
 
-extern "C" void uastc_bc7_host(int mode, const uint8_t* in, long long n, uint8_t* out,
-                               uint8_t* err) {
-  kRun[mode](in, n, out, err);
+// target: 0 bc7, 1 astc, 2 rgba
+extern "C" void uastc_host(int target, int mode, const uint8_t* in, long long n, uint8_t* out,
+                           uint8_t* err) {
+  kRun[target][mode](in, n, out, err);
 }
 
 extern "C" float fl_div255_host(int x) { return ub::fl_div255(x); }
 """
+
+TARGETS = {"bc7": (0, 16, bc7), "astc": (1, 16, astc), "rgba": (2, 64, rgba)}
 
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
     gxx = shutil.which("g++")
     if gxx is None:
-        pytest.skip("g++ is not installed; the host build of the kernel source needs it")
-    d = tmp_path_factory.mktemp("uastc_bc7_host")
+        pytest.skip("g++ is not installed; the host build of the kernel sources needs it")
+    d = tmp_path_factory.mktemp("uastc_host")
     (d / "host_entry.cpp").write_text(HOST_ENTRY)
-    so = d / "libuastc_bc7_host.so"
+    so = d / "libuastc_host.so"
     cmd = [gxx, "-std=c++17", "-O2", "-ffp-contract=off", "-Wall", "-Wno-unknown-pragmas",
            "-Werror", "-shared", "-fPIC", "-I", str(build.CSRC), "-o", str(so), str(d / "host_entry.cpp")]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr
     lib = ctypes.CDLL(str(so))
-    lib.uastc_bc7_host.restype = None
-    lib.uastc_bc7_host.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-                                   ctypes.c_void_p, ctypes.c_void_p]
+    lib.uastc_host.restype = None
+    lib.uastc_host.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                               ctypes.c_void_p, ctypes.c_void_p]
     lib.fl_div255_host.restype = ctypes.c_float
     lib.fl_div255_host.argtypes = [ctypes.c_int]
     return lib
 
 
-def _mode_blocks(golden, mode):
+def _mode_blocks(golden, mode, n_random):
     lut = np_tables()["MODE_LUT"]
     rng = np.random.default_rng(1000 + mode)
     codes = np.array([b for b in range(256) if lut[b & 0x7F] == mode], np.uint8)
-    r = rng.integers(0, 256, (4096, 16), dtype=np.uint8)
+    r = rng.integers(0, 256, (n_random, 16), dtype=np.uint8)
     r[:, 0] = rng.choice(codes, len(r))
     gold = golden["bc7_in"][lut[golden["bc7_in"][:, 0] & 0x7F] == mode]
     return np.ascontiguousarray(np.concatenate([gold, r]))
 
 
-@pytest.mark.parametrize("mode", range(19))
-def test_host_build_matches_plain(host_lib, golden, mode):
-    blocks = _mode_blocks(golden, mode)
-    out = np.zeros_like(blocks)
+def _check(host_lib, target, mode, blocks):
+    tid, out_bytes, plain = TARGETS[target]
+    out = np.zeros((len(blocks), out_bytes), np.uint8)
     err = np.zeros(len(blocks), np.uint8)
-    host_lib.uastc_bc7_host(mode, blocks.ctypes.data, len(blocks), out.ctypes.data, err.ctypes.data)
+    host_lib.uastc_host(tid, mode, blocks.ctypes.data, len(blocks), out.ctypes.data, err.ctypes.data)
 
     t = torch.from_numpy(blocks)
-    p_out = torch.zeros_like(t)
+    p_out = torch.zeros(len(blocks), out_bytes, dtype=torch.uint8)
     p_err = torch.zeros(len(blocks), dtype=torch.bool)
-    bc7.transcode_rows(mode, t, None, p_out, p_err)
+    plain.transcode_rows(mode, t, None, p_out, p_err)
     bad = np.nonzero(np.any(out != p_out.numpy(), axis=1) | (err.astype(bool) != p_err.numpy()))[0]
     assert bad.size == 0, (
-        f"mode {mode}: {bad.size} blocks differ; first {blocks[bad[0]].tolist()}\n"
+        f"{target} mode {mode}: {bad.size} blocks differ; first {blocks[bad[0]].tolist()}\n"
         f"host {out[bad[0]].tolist()} err {err[bad[0]]}\n"
         f"plain {p_out.numpy()[bad[0]].tolist()} err {bool(p_err[bad[0]])}"
     )
+
+
+@pytest.mark.parametrize("mode", range(19))
+def test_host_build_matches_plain(host_lib, golden, mode):
+    _check(host_lib, "bc7", mode, _mode_blocks(golden, mode, 4096))
+
+
+@pytest.mark.parametrize("target", ["astc", "rgba"])
+@pytest.mark.parametrize("mode", range(19))
+def test_host_build_astc_rgba_match_plain(host_lib, golden, target, mode):
+    _check(host_lib, target, mode, _mode_blocks(golden, mode, 2048))
 
 
 def test_host_fl_div255_exhaustive(host_lib):
     got = np.array([host_lib.fl_div255_host(x) for x in range(256)], np.float32)
     expect = (np.arange(256, dtype=np.float32) / np.float32(255.0)).astype(np.float32)
     np.testing.assert_array_equal(got.view(np.uint32), expect.view(np.uint32))
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN2ub12uastc_kernelIN12_GLOBAL__N_13Bc7ILi2EEEEEvPK5uint4PKxiPS5_Ph' for 'sm_90a'
+ptxas info    : Function properties for _ZN2ub12uastc_kernelIN12_GLOBAL__N_13Bc7ILi2EEEEEvPK5uint4PKxiPS5_Ph
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 48 registers, used 0 barriers, 388 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN2ub12uastc_kernelIN12_GLOBAL__N_14AstcILi17EEEEEvPK5uint4PKxiPS5_Ph' for 'sm_90a'
+ptxas info    : Function properties for _ZN2ub12uastc_kernelIN12_GLOBAL__N_14AstcILi17EEEEEvPK5uint4PKxiPS5_Ph
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 40 registers, used 0 barriers, 388 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN2ub12uastc_kernelIN12_GLOBAL__N_14RgbaILi9EEEEEvPK5uint4PKxiPS5_Ph' for 'sm_90a'
+ptxas info    : Function properties for _ZN2ub12uastc_kernelIN12_GLOBAL__N_14RgbaILi9EEEEEvPK5uint4PKxiPS5_Ph
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 0 barriers, 388 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_parser():
+    assert build.parse_ptxas(PTXAS_LOG) == {
+        ("bc7", 2): {"registers": 48, "stack": 0, "spill_stores": 0, "spill_loads": 0},
+        ("astc", 17): {"registers": 40, "stack": 8, "spill_stores": 4, "spill_loads": 4},
+        ("rgba", 9): {"registers": 64, "stack": 0, "spill_stores": 0, "spill_loads": 0},
+    }

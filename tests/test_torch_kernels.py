@@ -1,0 +1,81 @@
+"""PyTorch port: the kernel wrappers of `ops/kernels.py` (argument checks,
+the in-place index contract, counters) and the native build helper of
+`ops/build.py`, on the CPU, where a wrapper runs its plain version."""
+
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from basisu_rs_tpu_torch.ops import build, kernels
+
+from torch_cases import mode_blocks, plain
+
+TARGETS = kernels.TARGETS
+
+
+def _args(golden, target, mode=3, n_random=40):
+    blocks = torch.from_numpy(mode_blocks(golden, mode, n_random))
+    n = blocks.shape[0]
+    out = torch.full((n, kernels.OUT_BYTES[target]), 0xAB, dtype=torch.uint8)
+    err = torch.zeros(n, dtype=torch.bool)
+    return blocks, out, err
+
+
+@pytest.mark.parametrize("target", TARGETS)
+@pytest.mark.parametrize("where", ["negative", "past_end"])
+def test_index_out_of_range_raises(golden, target, where):
+    blocks, out, err = _args(golden, target)
+    bad = -1 if where == "negative" else blocks.shape[0]
+    index = torch.tensor([0, bad, 2], dtype=torch.int64)
+    kernels.reset_counts()
+    with pytest.raises(ValueError, match="index values must lie in"):
+        kernels.mode_kernel(target, 3)(blocks, index, out, err)
+    assert kernels.plain_call_counts()[target][3] == 0
+    assert bool((out == 0xAB).all())  # nothing written
+
+
+@pytest.mark.parametrize("target", TARGETS)
+def test_index_rows_in_place(golden, target):
+    # rows named by the index get the plain version's result; the others keep
+    # what was in `out`
+    blocks, out, err = _args(golden, target)
+    index = torch.arange(1, blocks.shape[0], 3)
+    kernels.reset_counts()
+    kernels.mode_kernel(target, 3)(blocks, index, out, err)
+    assert kernels.plain_call_counts()[target][3] == 1
+    e_out, e_err = plain(target, 3, blocks.numpy())
+    rows = index.numpy()
+    np.testing.assert_array_equal(out.numpy()[rows], e_out[rows])
+    np.testing.assert_array_equal(err.numpy()[rows], e_err[rows])
+    rest = np.setdiff1d(np.arange(blocks.shape[0]), rows)
+    assert bool((out[torch.from_numpy(rest)] == 0xAB).all())
+    assert not bool(err[torch.from_numpy(rest)].any())
+
+
+@pytest.mark.parametrize("case", ["blocks_dtype", "blocks_width", "index_dtype", "out_shape", "err_dtype"])
+def test_wrapper_rejects_bad_arguments(golden, case):
+    blocks, out, err = _args(golden, "rgba")
+    index = None
+    if case == "blocks_dtype":
+        blocks = blocks.to(torch.int16)
+    elif case == "blocks_width":
+        blocks = blocks[:, :8].contiguous()
+    elif case == "index_dtype":
+        index = torch.arange(4, dtype=torch.int32)
+    elif case == "out_shape":
+        out = out[:, :16].contiguous()
+    else:
+        err = err.to(torch.uint8)
+    with pytest.raises(ValueError):
+        kernels.mode_kernel("rgba", 3)(blocks, index, out, err)
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="g++ is not installed; host_library builds with it")
+def test_host_library_raises_on_failed_build(tmp_path):
+    src = tmp_path / "broken_unit.cpp"
+    src.write_text('extern "C" int broken( { return 0; }\n')
+    with pytest.raises(RuntimeError, match="build of libbroken_unit_.*failed"):
+        build.host_library(src)
+    assert not list(build.BUILD.glob("libbroken_unit_*"))  # no partial library left

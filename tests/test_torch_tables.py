@@ -1,5 +1,5 @@
-"""PyTorch port: the tables loader, the device tables and the generated
-CUDA header (basisu_rs_tpu_torch/tables.py, gen_header.py)."""
+"""PyTorch port: its own copy of the tables (basisu_rs_tpu_torch/tables/),
+the flat device tables and the generated CUDA header (gen_header.py)."""
 
 import subprocess
 import sys
@@ -11,26 +11,41 @@ import pytest
 import torch
 
 import basisu_rs_tpu.tables as jt
+import basisu_rs_tpu.tables.generated_tables as jg
+import basisu_rs_tpu_torch.tables as tt
+import basisu_rs_tpu_torch.tables.generated_tables as tg
+from basisu_rs_tpu.tables.bise import unquant_lut as j_unquant_lut
 from basisu_rs_tpu_torch import gen_header
-from basisu_rs_tpu_torch.tables import FAMILIES, MODES, device_tables, kernel_tables
+from basisu_rs_tpu_torch.tables import FAMILIES, device_tables, kernel_tables
 
 ROOT = Path(__file__).resolve().parents[1]
 
 
 def test_import_leaves_jax_out():
-    # the test process already holds jax (conftest), so check a fresh one
+    # the test process already holds jax (conftest), so check a fresh one:
+    # import every module of the port and chip_smoke, then look at what
+    # got loaded and from where
     code = (
-        "import sys, basisu_rs_tpu_torch\n"
-        "import basisu_rs_tpu_torch.ops.kernels, basisu_rs_tpu_torch.ops.dispatch\n"
-        "import basisu_rs_tpu_torch.gen_header\n"
-        "print('jax' in sys.modules, "
-        "any(k == 'basisu_rs_tpu' or k.startswith('basisu_rs_tpu.') for k in sys.modules))\n"
+        "import pkgutil, sys\n"
+        "from pathlib import Path\n"
+        "import basisu_rs_tpu_torch, chip_smoke\n"
+        "for m in pkgutil.walk_packages(basisu_rs_tpu_torch.__path__, 'basisu_rs_tpu_torch.'):\n"
+        "    __import__(m.name)\n"
+        "jax_pkg = Path('basisu_rs_tpu').resolve()\n"
+        "under = sorted(k for k, m in list(sys.modules.items())\n"
+        "               if getattr(m, '__file__', None) and jax_pkg in Path(m.__file__).resolve().parents)\n"
+        "print(sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')) or 'no-jax')\n"
+        "print(under or 'none-under-jax-package')\n"
+        "print(len([k for k in sys.modules if k.startswith('basisu_rs_tpu_torch.')]))\n"
     )
     res = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert res.returncode == 0, res.stderr
-    assert res.stdout.split() == ["False", "False"]
+    jax_mods, under, n_port = res.stdout.split("\n")[:3]
+    assert jax_mods == "no-jax"
+    assert under == "none-under-jax-package"
+    assert int(n_port) >= 15  # every module of the port was imported
 
 
 def test_header_matches_generator():
@@ -39,10 +54,56 @@ def test_header_matches_generator():
     )
 
 
-def test_loader_shares_the_reference_tables():
-    assert [astuple(m) for m in MODES] == [astuple(m) for m in jt.MODES]
-    assert [m.field_offsets for m in MODES] == [m.field_offsets for m in jt.MODES]
-    np.testing.assert_array_equal(kernel_tables()[0]["MODE_LUT"], jt.np_tables()["MODE_LUT"])
+# (name, port value, JAX package value): every table of the port's copy
+_GENERATED = sorted(k for k in vars(jg) if k.isupper())
+_FAM_FIELDS = [
+    "count", "nsub", "pat_texels", "pat_packed", "anchors", "anchors_packed", "astc_index10",
+    "bc7_index", "bc7_pat_texels", "bc7_pat_packed", "bc7_anchors", "bc7_anchors_packed",
+    "perm", "perm_packed",
+]
+_FAM_PACKERS = [
+    "fam_anchors_before", "fam_anchors_before_packed", "fam_bc7_anchors_before",
+    "fam_bc7_weight_preshift_packed",
+]
+CASES = {f"generated.{k}": (lambda k=k: getattr(tg, k), lambda k=k: getattr(jg, k)) for k in _GENERATED}
+CASES.update({
+    "MODES": (lambda: [astuple(m) + (m.field_offsets,) for m in tt.MODES],
+              lambda: [astuple(m) + (m.field_offsets,) for m in jt.MODES]),
+    "BC7_MODES": (lambda: [astuple(m) for m in tt.BC7_MODES], lambda: [astuple(m) for m in jt.BC7_MODES]),
+    "BISE_RANGES": (lambda: [astuple(r) for r in tt.BISE_RANGES], lambda: [astuple(r) for r in jt.BISE_RANGES]),
+    "scalars": (lambda: (tt.LA, tt.RGB, tt.RGBA, tt.MODE8_RGBA_OFFSET, tt.UASTC_BLOCK_SIZE),
+                lambda: (jt.LA, jt.RGB, jt.RGBA, jt.MODE8_RGBA_OFFSET, jt.UASTC_BLOCK_SIZE)),
+    "bc7_mode_5_optimal_packed": (tt.bc7_mode_5_optimal_packed, jt.bc7_mode_5_optimal_packed),
+    "bc7_mode_6_optimal_packed": (tt.bc7_mode_6_optimal_packed, jt.bc7_mode_6_optimal_packed),
+})
+CASES.update({f"np_tables.{k}": (lambda k=k: tt.np_tables()[k], lambda k=k: jt.np_tables()[k])
+              for k in tt.np_tables()})
+CASES.update({f"family.{f}.{fld}": (lambda f=f, fld=fld: getattr(tt._families()[f], fld),
+                                     lambda f=f, fld=fld: getattr(jt._families()[f], fld))
+              for f in FAMILIES for fld in _FAM_FIELDS})
+CASES.update({f"{fn}({f})": (lambda f=f, fn=fn: getattr(tt, fn)(f), lambda f=f, fn=fn: getattr(jt, fn)(f))
+              for f in FAMILIES for fn in _FAM_PACKERS})
+CASES.update({f"fam_bc7_inv_relpos_packed({f},{wb})": (lambda f=f, wb=wb: tt.fam_bc7_inv_relpos_packed(f, wb),
+                                                        lambda f=f, wb=wb: jt.fam_bc7_inv_relpos_packed(f, wb))
+              for f, wb in kernel_tables()[1].inv_relpos_base})
+CASES.update({f"unquant_lut({r})": (lambda r=r: tt.unquant_lut(r), lambda r=r: j_unquant_lut(r))
+              for r, rng in enumerate(jt.BISE_RANGES) if rng.trits or rng.quints})
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_own_copy_equals_reference(name):
+    port, ref = (fn() for fn in CASES[name])
+    if isinstance(ref, np.ndarray):
+        assert isinstance(port, np.ndarray) and port.dtype == ref.dtype and port.shape == ref.shape
+        np.testing.assert_array_equal(port, ref)
+    else:
+        assert port == ref
+
+
+def test_get_family_matches_reference():
+    for tm, jm in zip(tt.MODES, jt.MODES):
+        tf, jf = tt.get_family(tm), jt.get_family(jm)
+        assert (tf is None and jf is None) or tf.name == jf.name
 
 
 @pytest.mark.parametrize("fam", FAMILIES)
@@ -61,6 +122,8 @@ def test_flat_family_tables_match_reference(fam):
     np.testing.assert_array_equal(
         arrays["FAM_BC7_WEIGHT_PRESHIFT_PACKED"][rows], jt.fam_bc7_weight_preshift_packed(fam)
     )
+    np.testing.assert_array_equal(arrays["FAM_PAT_PACKED"][rows], ref.pat_packed)
+    np.testing.assert_array_equal(arrays["FAM_ASTC_INDEX10"][rows], ref.astc_index10)
     for (name, wb), b in layout.inv_relpos_base.items():
         if name == fam:
             np.testing.assert_array_equal(
@@ -70,14 +133,24 @@ def test_flat_family_tables_match_reference(fam):
 
 
 def test_unquant_lut_and_optimal_tables_match_reference():
-    from basisu_rs_tpu.tables.bise import unquant_lut
-
     arrays, layout = kernel_tables()
     for r, base in layout.unquant_base.items():
-        lut = unquant_lut(r)
+        lut = j_unquant_lut(r)
         np.testing.assert_array_equal(arrays["UNQUANT_LUT"][base : base + len(lut)], lut)
     np.testing.assert_array_equal(arrays["BC7_MODE_5_OPTIMAL_PACKED"], jt.bc7_mode_5_optimal_packed())
     np.testing.assert_array_equal(arrays["BC7_MODE_6_OPTIMAL_PACKED"], jt.bc7_mode_6_optimal_packed())
+
+
+def test_astc_tables_match_reference():
+    arrays, _ = kernel_tables()
+    for k in ("MODE_LUT", "ASTC_QUINT_ENCODE", "ASTC_TRIT_ENCODE"):
+        np.testing.assert_array_equal(arrays[k], jt.np_tables()[k])
+    assert len(arrays["ASTC_QUINT_ENCODE"]) == 125 and len(arrays["ASTC_TRIT_ENCODE"]) == 243
+    header = gen_header.HEADER.read_text()
+    for cfg in tt.MODES:
+        mode13 = int(jt.np_tables()["UASTC_TO_ASTC_BLOCK_MODE_13"][cfg.id])
+        traits = header.split(f"struct Mode<{cfg.id}> {{")[1].split("};")[0]
+        assert f"static constexpr int astc_block_mode = {mode13};" in traits
 
 
 def test_device_tables_equal_kernel_tables():
