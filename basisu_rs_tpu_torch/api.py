@@ -71,9 +71,9 @@ def _as_blocks(blocks, device) -> torch.Tensor:
 
 def transcode_uastc_blocks(blocks, target: str, device="cuda"):
     """Batch transcode: uint8 [N,16] UASTC blocks (numpy or torch) ->
-    (out, err bool [N]) as torch tensors on `device`.  out is uint8 [N,16]
-    block bytes for "bc7" and "astc", and uint32 [N,16] packed RGBA texel
-    words for "rgba"."""
+    (out, err bool [N]) as torch tensors on `device`.  out is uint8 block
+    bytes for "bc7", "astc" and "etc2" ([N,16]) and "etc1" ([N,8]), and
+    uint32 [N,16] packed RGBA texel words for "rgba"."""
     check_target(target)
     return transcode_blocks(_as_blocks(blocks, device), target)
 
@@ -115,3 +115,13 @@ def transcode_uastc_block_to_astc(data, device="cuda") -> bytes:
 def transcode_uastc_block_to_bc7(data, device="cuda") -> bytes:
     """16-byte UASTC block -> 16-byte BC7 block (lib.rs:29-79)."""
     return _single(data, "bc7", device).tobytes()
+
+
+def transcode_uastc_block_to_etc1(data, device="cuda") -> bytes:
+    """16-byte UASTC block -> 8-byte ETC1 block."""
+    return _single(data, "etc1", device).tobytes()
+
+
+def transcode_uastc_block_to_etc2(data, device="cuda") -> bytes:
+    """16-byte UASTC block -> 16-byte ETC2 RGBA block (EAC alpha, then ETC1)."""
+    return _single(data, "etc2", device).tobytes()

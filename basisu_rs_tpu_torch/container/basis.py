@@ -3,7 +3,8 @@
 Port of the UASTC half of `basisu_rs_tpu/container/basis.py`, mirroring the
 reference container layer (src/basis.rs): signature + 77-byte header with
 u24 fields, CRC-16/GENIBUS header and data checksums, 23-byte slice
-descriptors, and `read_to_{rgba,astc,bc7,uastc}` for UASTC files.
+descriptors, and `read_to_{rgba,astc,bc7,etc1,etc2,uastc}` for UASTC
+files.
 
 Device design: the host parses and checks the file (header, both CRCs,
 slice table), then copies the UASTC payload of all slices to the device
@@ -14,8 +15,9 @@ point.  RGBA images are reordered from block rows ([by, bx, y, x]) to
 raster rows on the device.  Images keep the JAX package's strides.  Every
 `read_to_*` runs on `device="cuda"` unless asked for another device.
 
-Not ported yet: ETC1S files (ROADMAP.md Queue 1 item 9), the ETC1/ETC2
-targets (item 8) and `mesh=` (item 11).
+Not ported yet: ETC1S files (ROADMAP.md Queue 1 item 9: `read_to_rgba` and
+`read_to_etc1` of one raise NotImplementedError, the other readers refuse
+the format as the JAX package does) and `mesh=` (item 11).
 """
 
 from __future__ import annotations
@@ -265,20 +267,25 @@ def rgba_images(out: torch.Tensor, slices) -> list[Image]:
     return images
 
 
+_ETC1S_NOT_PORTED = "ETC1S files are not ported to PyTorch yet (ROADMAP.md Queue 1 item 9)"
+
+
 def read_to_rgba(buf: bytes, device="cuda") -> tuple[Header, list[Image]]:
     """-> (Header, [Image]) of RGBA bytes, one image per slice (reference:
     basis.rs:8-90)."""
     header, slices, out = _transcode_file(buf, "rgba", device)
     if header is None:
-        raise NotImplementedError("ETC1S files are not ported to PyTorch yet (ROADMAP.md Queue 1 item 9)")
+        raise NotImplementedError(_ETC1S_NOT_PORTED)
     return header, rgba_images(out, slices)
 
 
-def _read_to_blocks(buf: bytes, target: str, device) -> list[Image]:
-    """Shared UASTC path of read_to_{astc,bc7} (basis.rs:92-260)."""
+def _read_to_blocks(buf: bytes, target: str, device, etc1s_error: Exception) -> list[Image]:
+    """Shared UASTC path of read_to_{astc,bc7,etc1,etc2} (basis.rs:92-260):
+    one image of OUT_BYTES[target]-byte blocks per slice.  An ETC1S file
+    raises etc1s_error."""
     header, slices, out = _transcode_file(buf, target, device)
     if header is None:
-        raise BasisError("unsupported texture format")
+        raise etc1s_error
     size = OUT_BYTES[target]
     return [
         Image(w=desc.orig_width, h=desc.orig_height, stride=size * desc.num_blocks_x, data=out[a:b].reshape(-1))
@@ -287,11 +294,22 @@ def _read_to_blocks(buf: bytes, target: str, device) -> list[Image]:
 
 
 def read_to_astc(buf: bytes, device="cuda") -> list[Image]:
-    return _read_to_blocks(buf, "astc", device)
+    return _read_to_blocks(buf, "astc", device, BasisError("unsupported texture format"))
 
 
 def read_to_bc7(buf: bytes, device="cuda") -> list[Image]:
-    return _read_to_blocks(buf, "bc7", device)
+    return _read_to_blocks(buf, "bc7", device, BasisError("unsupported texture format"))
+
+
+def read_to_etc1(buf: bytes, device="cuda") -> list[Image]:
+    """8-byte ETC1 blocks of a UASTC file."""
+    return _read_to_blocks(buf, "etc1", device, NotImplementedError(_ETC1S_NOT_PORTED))
+
+
+def read_to_etc2(buf: bytes, device="cuda") -> list[Image]:
+    """16-byte ETC2 RGBA blocks (EAC alpha, then ETC1) of a UASTC file; an
+    ETC1S file is refused, as in the reference."""
+    return _read_to_blocks(buf, "etc2", device, BasisError("unsupported texture format"))
 
 
 def read_to_uastc(buf: bytes, device="cuda") -> list[Image]:
@@ -311,13 +329,3 @@ def read_to_uastc(buf: bytes, device="cuda") -> list[Image]:
         for desc in descs
     ]
 
-
-def read_to_etc1(buf: bytes, device="cuda") -> list[Image]:
-    raise NotImplementedError(
-        "read_to_etc1 is not ported to PyTorch yet (ROADMAP.md Queue 1 item 8 for UASTC files, "
-        "item 9 for ETC1S files)"
-    )
-
-
-def read_to_etc2(buf: bytes, device="cuda") -> list[Image]:
-    raise NotImplementedError("read_to_etc2 is not ported to PyTorch yet (ROADMAP.md Queue 1 item 8)")

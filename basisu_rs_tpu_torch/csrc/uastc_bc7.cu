@@ -31,7 +31,7 @@ namespace {
 
 template <int M>
 struct Bc7 {
-  static constexpr int kOutVecs = 1;
+  static constexpr int kOutBytes = 16;
   static UB_FN bool run(const uint32_t (&l)[4], uint32_t (&o)[4]) { return ub::uastc_to_bc7<M>(l, o); }
 };
 

@@ -1,0 +1,337 @@
+// K4 and K5 per-block logic: one UASTC 4x4 block -> an 8-byte ETC1 block
+// (uastc_to_etc1<M>) or a 16-byte ETC2 RGBA block, the EAC alpha block and
+// then the ETC1 block (uastc_to_etc2<M>), specialised per UASTC mode.
+//
+// Port of basisu_rs_tpu/ops/etc.py (uastc_to_etc1_mode, uastc_to_etc2_mode),
+// mirroring convert_block_from_uastc (reference:
+// src/target_formats/etc.rs:32-341).  The texels come from K3's decode
+// (for_each_texel in uastc_rgba.cuh); the plain PyTorch version is
+// basisu_rs_tpu_torch/ops/etc.py.  Like the other .cuh files, this source
+// also compiles with g++ for the CPU tests.
+//
+// Traps this code is written against:
+//   - The EAC centre lerp min*(1-frac) + max*frac takes one IEEE rounding a
+//     step (fsub_rn, fmul_rn, fadd_rn; nvcc --fmad=false, g++
+//     -ffp-contract=off); frac is read from its f32 bit pattern.
+//   - Mode 8 in individual mode writes ((c << 4) | c) & 0xFF: a 5-bit c of
+//     16 or more wraps, as the reference's u8 write does.
+//   - The bias rule's wraps at v == 0, v == limit and plain < 0, and the
+//     signed clip(c1 - c0, -4, 3) & 7, stay in int32_t.
+//   - Two transposes: the ETC1 selector of texel u goes to pixel id
+//     (u%4)*4 + u/4, the EAC selector of texel i to pid = y*4 + x with
+//     x = i/4, y = i%4.
+//   - The 16 EAC selectors accumulate in one uint64_t 48-bit payload, so no
+//     field straddles a 32-bit word and no shift reaches 64.
+#pragma once
+#include <string.h>
+
+#include "uastc_rgba.cuh"
+
+namespace ub {
+
+UB_FN int32_t color_5_to_8(int32_t c) { return (c << 3) | (c >> 2); }
+UB_FN int32_t color_4_to_8(int32_t c) { return (c << 4) | c; }
+UB_FN int32_t imin(int32_t a, int32_t b) { return a < b ? a : b; }
+UB_FN int32_t imax(int32_t a, int32_t b) { return a > b ? a : b; }
+
+UB_FN float bits_to_float(uint32_t u) {
+#if defined(__CUDA_ARCH__)
+  return __uint_as_float(u);
+#else
+  float f;
+  memcpy(&f, &u, sizeof f);
+  return f;
+#endif
+}
+
+// ETC1 wire bits of a 2-bit selector: SELECTOR_ID_TO_ETC1[sel] =
+// [3, 2, 0, 1][sel], its MSB !(sel>>1) and LSB !((sel>>1) ^ (sel&1)).
+UB_FN void selector_ms_ls(uint32_t sel, uint32_t& ms, uint32_t& ls) {
+  const uint32_t hi = (sel >> 1) & 1u;
+  ms = hi ^ 1u;
+  ls = (hi ^ sel ^ 1u) & 1u;
+}
+
+// A texel's wire bits in the ETC1 selector word at pixel id `pid`
+// (etc.rs:363-393): byte 0 holds the MSBs of pixels 8..15, byte 1 those of
+// 0..7, bytes 2 and 3 the LSBs likewise.
+UB_FN uint32_t selector_wire_bits(uint32_t ms, uint32_t ls, int pid) {
+  const int ms_byte = 1 - pid / 8, bit = pid % 8;
+  return (ms << (8 * ms_byte + bit)) | (ls << (8 * (ms_byte + 2) + bit));
+}
+
+// The wire bits of a texel's selector from its luminance and its
+// subblock's three non-decreasing thresholds: the hits c1 >= c2 >= c3 are
+// nested, sel = c1 + c2 + c3, so ms = !c2 and ls = c3 | !c1.
+UB_FN void etc1_selector(int32_t lum, const int32_t (&th)[3], uint32_t& ms, uint32_t& ls) {
+  ms = lum < th[1] ? 1u : 0u;
+  ls = (lum >= th[2] || lum < th[0]) ? 1u : 0u;
+}
+
+// The ETC hint fields (uastc.rs:411-441).  Modes 10-12 carry no bc1h1 and
+// no bias; only the alpha formats carry etc2tm.
+struct EtcFlags {
+  int32_t flip, diff, inten0, inten1, bias, etc2tm;
+};
+
+template <int M>
+UB_FN EtcFlags decode_trans_flags(const uint32_t (&l)[4]) {
+  using C = Mode<M>;
+  constexpr bool no_bias = M >= 10 && M <= 12;
+  constexpr int ofs = C::ofs_trans_flags + (no_bias ? 1 : 2);  // past bc1h0 (and bc1h1)
+  EtcFlags f;
+  f.flip = static_cast<int32_t>(extract(l, ofs, 1));
+  f.diff = static_cast<int32_t>(extract(l, ofs + 1, 1));
+  f.inten0 = static_cast<int32_t>(extract(l, ofs + 2, 3));
+  f.inten1 = static_cast<int32_t>(extract(l, ofs + 5, 3));
+  f.bias = no_bias ? 0 : static_cast<int32_t>(extract(l, ofs + 8, 5));
+  f.etc2tm = C::format == FORMAT_RGB ? 0 : static_cast<int32_t>(extract(l, ofs + (no_bias ? 8 : 13), 8));
+  return f;
+}
+
+// ---- EAC alpha block (etc.rs:261-341) -------------------------------------
+
+// The solid EAC block of an alpha byte: table 13, multiplier 1, every
+// selector 4.
+UB_FN void solid_alpha_block(uint32_t value, uint32_t& w0, uint32_t& w1) {
+  w0 = value | (0x1Du << 8) | (0x92u << 16) | (0x49u << 24);
+  w1 = 0x24u | (0x92u << 8) | (0x49u << 16) | (0x24u << 24);
+}
+
+// The 7 thresholds of the EAC selector search for a block's centre,
+// multiplier and modifier row (m0, m1: the row's 8 modifiers + 15, a byte
+// each).  The candidates in value order [3,2,1,0,4,5,6,7] take pre-halved
+// midpoint thresholds, and the two duplicate-run shapes of min_by_key's
+// first-minimal-j rule (mult == 0: all equal; W3 == W4) are folded into
+// the thresholds once per block.
+UB_FN void eac_thresholds(int32_t center, int32_t mult, uint32_t m0, uint32_t m1, int32_t (&T)[7]) {
+  const int32_t cbase = center - 15 * mult;
+  int32_t val[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int32_t mod = static_cast<int32_t>(((j < 4 ? m0 : m1) >> (8 * (j & 3))) & 255u);
+    val[j] = imin(imax(cbase + mod * mult, 0), 255);
+  }
+  const int32_t W[8] = {val[3], val[2], val[1], val[0], val[4], val[5], val[6], val[7]};
+#pragma unroll
+  for (int k = 0; k < 7; ++k) T[k] = (W[k] + W[k + 1] + (k < 3 ? 1 : 2)) >> 1;
+  const bool kill_all = mult == 0, kill_lo = kill_all || W[3] == W[4];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) T[k] = kill_lo ? 0 : T[k];
+#pragma unroll
+  for (int k = 4; k < 7; ++k) T[k] = kill_all ? 256 : T[k];
+  T[3] = kill_lo ? T[4] : T[3];
+}
+
+// The EAC selector (0..7) of alpha a: its rank among the thresholds by a
+// 3-level search (3 compares), mapped back to the modifier index.
+UB_FN uint32_t eac_selector(int32_t a, const int32_t (&T)[7]) {
+  const bool b2 = a >= T[3];
+  const bool b1 = a >= (b2 ? T[5] : T[1]);
+  const int32_t t0 = b2 ? (b1 ? T[6] : T[4]) : (b1 ? T[2] : T[0]);
+  const uint32_t u = (static_cast<uint32_t>(b1) << 1) | static_cast<uint32_t>(a >= t0);
+  return u ^ (3u + static_cast<uint32_t>(b2));
+}
+
+// The EAC block of 16 alphas, packed 4 bytes a word in texel order.  The
+// solid overrides (min == max, then etc2tm == 0) come last, as in the
+// reference, so every thread runs the same straight-line code.
+UB_FN void eac_alpha_block(int32_t etc2tm, const uint32_t (&apk)[4], int32_t amin, int32_t amax,
+                           uint32_t& w0, uint32_t& w1) {
+  const int32_t tbl = etc2tm & 15, mult = etc2tm >> 4;
+  const float frac = bits_to_float(UB_LDG(&EAC_FRACTION_BITS[tbl]));
+  // centre = round(lerp(min, max, frac)), half away from zero (>= 0 here)
+  const float lerped = fadd_rn(fmul_rn(static_cast<float>(amin), fsub_rn(1.0f, frac)),
+                               fmul_rn(static_cast<float>(amax), frac));
+  const int32_t center = static_cast<int32_t>(fadd_rn(lerped, 0.5f));  // truncation
+  int32_t T[7];
+  eac_thresholds(center, mult, UB_LDG(&EAC_MOD_PACKED[2 * tbl]), UB_LDG(&EAC_MOD_PACKED[2 * tbl + 1]), T);
+
+  uint64_t payload = 0;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int32_t a = static_cast<int32_t>((apk[i >> 2] >> (8 * (i & 3))) & 255u);
+    const int pid = (i % 4) * 4 + i / 4;  // x = i/4, y = i%4
+    payload |= static_cast<uint64_t>(eac_selector(a, T)) << (45 - 3 * pid);
+  }
+  // block byte b (2..7) is payload bits 47-8(b-2) .. 40-8(b-2)
+  const uint32_t hi = static_cast<uint32_t>(payload >> 32), lo = static_cast<uint32_t>(payload);
+  w0 = (static_cast<uint32_t>(center) & 0xFFu) | (static_cast<uint32_t>(etc2tm) << 8) |
+       ((hi & 0xFF00u) << 8) | ((hi & 0xFFu) << 24);
+  w1 = (lo >> 24) | ((lo >> 8) & 0xFF00u) | ((lo & 0xFF00u) << 8) | ((lo & 0xFFu) << 24);
+  if (amin == amax) solid_alpha_block(static_cast<uint32_t>(amin), w0, w1);
+  if (etc2tm == 0) solid_alpha_block(255u, w0, w1);
+}
+
+// ---- the ETC1 block --------------------------------------------------------
+
+// Mode 8: the ETC1 block straight from the hint flags (etc.rs:43-75).
+UB_FN uint32_t mode8_color_byte(uint32_t c, uint32_t d) { return d ? c << 3 : ((c << 4) | c) & 0xFFu; }
+
+UB_FN void mode8_etc1(const uint32_t (&l)[4], uint32_t& w0, uint32_t& w1) {
+  constexpr int O = MODE8_ETC1_FLAGS_OFFSET;
+  const uint32_t d = extract(l, O, 1), inten = extract(l, O + 1, 3), s = extract(l, O + 4, 2);
+  w0 = mode8_color_byte(extract(l, O + 6, 5), d) | (mode8_color_byte(extract(l, O + 11, 5), d) << 8) |
+       (mode8_color_byte(extract(l, O + 16, 5), d) << 16) | (((inten << 5) | (inten << 2) | (d << 1)) << 24);
+  uint32_t ms, ls;
+  selector_ms_ls(s, ms, ls);
+  w1 = (0xFFFFu * ms) | ((0xFFFFu * ls) << 16);
+}
+
+// (ssum*limit + 1020) / 2040, the subblock average of a channel sum
+// (ssum <= 2040, limit 15 or 31), as an exact mul-shift: the product is at
+// most 64260 * 32897 < 2^31.
+UB_FN int32_t subblock_average(int32_t ssum, int32_t limit) { return ((ssum * limit + 1020) * 32897) >> 26; }
+
+// The bias nudge of one channel (etc.rs:203-259); field = delta + 2.
+UB_FN int32_t apply_bias(int32_t v, int32_t field, int32_t limit) {
+  const int32_t plain = v + field - 2;
+  if (v == 0) return (field - 1) & 3;  // delta + 1, except delta -2 -> 3
+  if (v == limit) return plain - 1;
+  return plain < 0 ? v + 2 : plain;  // only plain == -1 (v 1, delta -2) wraps
+}
+
+// The ETC1 block of a non-mode-8 block from its flags, the four 2x2-quad
+// channel sums q[qy*2 + qx][c] and the 16 texel luminances (etc.rs:78-200).
+// Each texel u writes its selector at the static pixel id (u%4)*4 + u/4 in
+// both orientations; the flip bit only chooses whose thresholds it meets
+// (its row pair under flip, its column pair otherwise), which differ only on
+// the two off-diagonal quads.
+template <int M>
+UB_FN void etc1_block(const EtcFlags& f, const int32_t (&q)[4][3], const int32_t (&lum)[16], uint32_t& w0,
+                      uint32_t& w1) {
+  constexpr bool has_bias = !(M >= 10 && M <= 12);
+  const bool flip = f.flip != 0, diff = f.diff != 0;
+  const int32_t limit = diff ? 31 : 15;
+  const uint32_t bias_word = has_bias ? UB_LDG(&ETC_BIAS_PACKED[f.bias]) : 0u;
+  int32_t c[2][3];
+#pragma unroll
+  for (int sb = 0; sb < 2; ++sb) {
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      const int32_t ssum = flip ? q[2 * sb][ch] + q[2 * sb + 1][ch] : q[sb][ch] + q[2 + sb][ch];
+      const int32_t avg = subblock_average(ssum, limit);
+      c[sb][ch] = has_bias ? apply_bias(avg, static_cast<int32_t>((bias_word >> (2 * (3 * sb + ch))) & 3u), limit)
+                           : avg;
+    }
+  }
+  // colour bytes and palette bases (etc.rs:122-149)
+  int32_t base[2][3];
+  uint32_t bytes = 0;
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    const int32_t d = imin(imax(c[1][ch] - c[0][ch], -4), 3);
+    const int32_t byte = diff ? (c[0][ch] << 3) | (d & 7) : (c[0][ch] << 4) | c[1][ch];
+    bytes |= static_cast<uint32_t>(byte) << (8 * ch);
+    base[0][ch] = diff ? color_5_to_8(c[0][ch]) : color_4_to_8(c[0][ch]);
+    base[1][ch] = diff ? color_5_to_8(c[0][ch] + d) : color_4_to_8(c[1][ch]);
+  }
+  w0 = bytes | (static_cast<uint32_t>((f.inten0 << 5) | (f.inten1 << 2) | (f.diff << 1) | f.flip) << 24);
+
+  // palette luminances at half scale (54/183/19): the reference's
+  // (lum_k + lum_k+1) >> 1 of even full-scale values is the plain sum
+  int32_t th[2][3];
+#pragma unroll
+  for (int sb = 0; sb < 2; ++sb) {
+    const uint32_t mw = UB_LDG(&ETC1_MOD_PACKED[sb == 0 ? f.inten0 : f.inten1]);
+    const int32_t small = static_cast<int32_t>(mw & 255u), big = static_cast<int32_t>(mw >> 8);
+    int32_t pl[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int32_t mod = k == 0 ? -big : k == 1 ? -small : k == 2 ? small : big;
+      int32_t s = 0;
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        const int32_t v = k < 2 ? imax(base[sb][ch] + mod, 0) : imin(base[sb][ch] + mod, 255);
+        s += v * (ch == 0 ? 54 : ch == 1 ? 183 : 19);
+      }
+      pl[k] = s;
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k) th[sb][k] = pl[k] + pl[k + 1];
+  }
+  // thresholds per quad qy*2 + qx, the off-diagonal ones chosen once per block
+  int32_t tq[4][3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    tq[0][k] = th[0][k];
+    tq[1][k] = flip ? th[0][k] : th[1][k];
+    tq[2][k] = flip ? th[1][k] : th[0][k];
+    tq[3][k] = th[1][k];
+  }
+  w1 = 0;
+#pragma unroll
+  for (int u = 0; u < 16; ++u) {
+    const int qd = (u / 8) * 2 + (u % 4) / 2;
+    uint32_t ms, ls;
+    etc1_selector(lum[u], tq[qd], ms, ls);
+    w1 |= selector_wire_bits(ms, ls, (u % 4) * 4 + u / 4);
+  }
+}
+
+// Stream the block's texels into the ETC1 inputs (quad sums, luminances)
+// and, with kAlpha, the alphas packed 4 a word with their min and max.
+template <int M, bool kAlpha>
+UB_FN bool etc_texels(const uint32_t (&l)[4], int32_t (&q)[4][3], int32_t (&lum)[16], uint32_t (&apk)[4],
+                      int32_t& amin, int32_t& amax) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    q[k][0] = q[k][1] = q[k][2] = 0;
+    apk[k] = 0;
+  }
+  amin = 255;
+  amax = 0;
+  return for_each_texel<M, kAlpha ? 4 : 3>(l, [&](int i, const int32_t (&ch)[4]) {
+    const int qd = (i / 8) * 2 + (i % 4) / 2;
+    q[qd][0] += ch[0];
+    q[qd][1] += ch[1];
+    q[qd][2] += ch[2];
+    lum[i] = ch[0] * 108 + ch[1] * 366 + ch[2] * 38;
+    if constexpr (kAlpha) {
+      apk[i / 4] |= static_cast<uint32_t>(ch[3]) << (8 * (i % 4));
+      amin = imin(amin, ch[3]);
+      amax = imax(amax, ch[3]);
+    }
+  });
+}
+
+// UASTC block -> ETC1 block (2 words).  Returns the block's error flag.
+template <int M>
+UB_FN bool uastc_to_etc1(const uint32_t (&l)[4], uint32_t (&o)[2]) {
+  if constexpr (M == 8) {
+    mode8_etc1(l, o[0], o[1]);
+    return false;
+  } else {
+    int32_t q[4][3], lum[16], amin, amax;
+    uint32_t apk[4];
+    const bool err = etc_texels<M, false>(l, q, lum, apk, amin, amax);
+    etc1_block<M>(decode_trans_flags<M>(l), q, lum, o[0], o[1]);
+    return err;
+  }
+}
+
+// UASTC block -> ETC2 RGBA block (4 words: EAC alpha, then ETC1).
+template <int M>
+UB_FN bool uastc_to_etc2(const uint32_t (&l)[4], uint32_t (&o)[4]) {
+  if constexpr (M == 8) {
+    solid_alpha_block(extract(l, MODE8_RGBA_OFFSET + 24, 8), o[0], o[1]);
+    mode8_etc1(l, o[2], o[3]);
+    return false;
+  } else {
+    constexpr bool kAlpha = Mode<M>::format != FORMAT_RGB;
+    int32_t q[4][3], lum[16], amin, amax;
+    uint32_t apk[4];
+    const bool err = etc_texels<M, kAlpha>(l, q, lum, apk, amin, amax);
+    const EtcFlags f = decode_trans_flags<M>(l);
+    if constexpr (kAlpha) {
+      eac_alpha_block(f.etc2tm, apk, amin, amax, o[0], o[1]);
+    } else {
+      // RGB modes decode alpha 255 and carry no etc2tm: the solid-255 block
+      solid_alpha_block(255u, o[0], o[1]);
+    }
+    etc1_block<M>(f, q, lum, o[2], o[3]);
+    return err;
+  }
+}
+
+}  // namespace ub

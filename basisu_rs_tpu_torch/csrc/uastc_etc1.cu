@@ -1,0 +1,42 @@
+// K4 on Hopper: UASTC 4x4 -> ETC1, one hand-written CUDA kernel per UASTC
+// mode (uastc_kernel<Etc1<M>>, M = 0..18), built for sm_90a.
+//
+// Replaces the TPU kernel basisu_rs_tpu/ops/pallas_kernels.py::_pallas_build
+// ("etc1", mode) (pl.pallas_call at :150), whose body is
+// basisu_rs_tpu/ops/etc.py::uastc_to_etc1_mode.  The per-block logic is in
+// uastc_etc.cuh over K3's texel decode (uastc_rgba.cuh, uastc_decode.cuh),
+// the launch layout in uastc_launch.cuh.
+//
+// What bounds it on the H100: the function needs 25 bytes of HBM a block
+// (16 in, 8 out, a 1-byte error flag; the dispatch's int64 index list adds
+// 8 more): at 2^23 blocks 0.063 ms at 3.35 TB/s.  Against that stands the
+// whole RGB decode of K3 plus the encode: 16 luminance dot products, the
+// subblock averages, the bias rule, two 4-level palettes and 48 threshold
+// compares, all integer.
+//
+// What the design does about it: one thread per block, one 16-byte load and
+// one 8-byte store, in place through the index list.  The texels stream:
+// each texel's RGB is folded into four 2x2-quad sums and its luminance as
+// soon as K3's lerp yields it, so no 16 x 3 array of channels stays live;
+// the flip bit only selects which quad sums form a subblock and which
+// thresholds the two off-diagonal quads meet, once per block.  The four ETC
+// tables (under 0.4 KB) are read with __ldg.
+#include "uastc_etc.cuh"
+#include "uastc_launch.cuh"
+
+namespace {
+
+template <int M>
+struct Etc1 {
+  static constexpr int kOutBytes = 8;
+  static UB_FN bool run(const uint32_t (&l)[4], uint32_t (&o)[2]) { return ub::uastc_to_etc1<M>(l, o); }
+};
+
+}  // namespace
+
+// Transcode the n blocks in[index[t]] (all of UASTC mode `mode`) into the
+// 8-byte ETC1 rows out[index[t]] / err[index[t]]; see ub::launch.
+extern "C" int uastc_etc1_launch(int mode, const void* in, const void* index, int n, void* out,
+                                 void* err, void* stream) {
+  return ub::launch<Etc1>(mode, in, index, n, out, err, stream);
+}

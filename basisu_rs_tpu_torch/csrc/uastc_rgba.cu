@@ -28,7 +28,7 @@ namespace {
 
 template <int M>
 struct Rgba {
-  static constexpr int kOutVecs = 4;
+  static constexpr int kOutBytes = 64;
   static UB_FN bool run(const uint32_t (&l)[4], uint32_t (&o)[16]) { return ub::uastc_to_rgba<M>(l, o); }
 };
 

@@ -1,5 +1,6 @@
 // K3 per-block logic: one UASTC 4x4 block -> 16 packed RGBA texels,
-// specialised per UASTC mode (template <int M>).
+// specialised per UASTC mode (template <int M>), and the texel decode that
+// K4 and K5 (uastc_etc.cuh) stream their texels from.
 //
 // Port of basisu_rs_tpu/ops/rgba.py (uastc_to_rgba_channels, pack_rgba),
 // mirroring decode_block_to_rgba (reference: src/uastc.rs:237-327).  The
@@ -17,16 +18,22 @@ UB_FN uint32_t pack_rgba(int32_t r, int32_t g, int32_t b, int32_t a) {
          (static_cast<uint32_t>(b) << 16) | (static_cast<uint32_t>(a) << 24);
 }
 
-// UASTC block (4 words) -> 16 texel words in raster order within the block.
-// Returns the block's error flag: an out-of-range pattern index (the texels
-// are still written, from the clamped pattern, as the reference kernels do).
-template <int M>
-UB_FN bool uastc_to_rgba(const uint32_t (&l)[4], uint32_t (&o)[16]) {
+// Decode the block and call visit(i, ch) for each texel i = 0..15 in raster
+// order within the block, ch[0..NC-1] holding its channels (r, g, b, a;
+// NC = 3 skips alpha and leaves ch[3] unset).  Each texel's channels are
+// computed just before its visit, so a caller that folds them into sums
+// keeps no 16 x 4 array live.  Returns the block's error flag: an
+// out-of-range pattern index (the texels still come from the clamped
+// pattern, as in the reference kernels).
+template <int M, int NC, class Visit>
+UB_FN bool for_each_texel(const uint32_t (&l)[4], Visit&& visit) {
+  static_assert(NC == 3 || NC == 4, "3 or 4 channels");
   if constexpr (M == 8) {
-    const uint32_t px = pack_rgba(mode8_channel(l, 0), mode8_channel(l, 1), mode8_channel(l, 2),
-                                  mode8_channel(l, 3));
+    int32_t ch[4];
 #pragma unroll
-    for (int i = 0; i < 16; ++i) o[i] = px;
+    for (int c = 0; c < NC; ++c) ch[c] = mode8_channel(l, c);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) visit(i, ch);
     return false;
   } else {
     using C = Mode<M>;
@@ -43,11 +50,11 @@ UB_FN bool uastc_to_rgba(const uint32_t (&l)[4], uint32_t (&o)[16]) {
     endpoint_pairs<M>(ep, pr);
 
     // the per-block halves of the factored lerp, per subset and channel
-    int32_t L0[nsub][4], D[nsub][4];
+    int32_t L0[nsub][NC], D[nsub][NC];
 #pragma unroll
     for (int s = 0; s < nsub; ++s) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) interp_hoist(pr[s][0][c], pr[s][1][c], L0[s][c], D[s][c]);
+      for (int c = 0; c < NC; ++c) interp_hoist(pr[s][0][c], pr[s][1][c], L0[s][c], D[s][c]);
     }
     const uint32_t sp = subsets_packed<M>(pat);
 
@@ -56,7 +63,7 @@ UB_FN bool uastc_to_rgba(const uint32_t (&l)[4], uint32_t (&o)[16]) {
       const int32_t s_i = static_cast<int32_t>((sp >> (2 * i)) & 3u);
       int32_t ch[4];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < NC; ++c) {
         if (C::format == FORMAT_RGB && c == 3) {
           ch[3] = 255;  // RGB alpha: equal endpoints, the lerp is the identity
           continue;
@@ -73,10 +80,16 @@ UB_FN bool uastc_to_rgba(const uint32_t (&l)[4], uint32_t (&o)[16]) {
         }
         ch[c] = interp_eval(l0, d, unquant_weight<wb>(static_cast<int32_t>(wr)));
       }
-      o[i] = pack_rgba(ch[0], ch[1], ch[2], ch[3]);
+      visit(i, ch);
     }
     return err;
   }
+}
+
+// UASTC block (4 words) -> 16 texel words in raster order within the block.
+template <int M>
+UB_FN bool uastc_to_rgba(const uint32_t (&l)[4], uint32_t (&o)[16]) {
+  return for_each_texel<M, 4>(l, [&](int i, const int32_t (&ch)[4]) { o[i] = pack_rgba(ch[0], ch[1], ch[2], ch[3]); });
 }
 
 }  // namespace ub

@@ -11,6 +11,7 @@ namespace ub {
 
 constexpr int INVALID_MODE = 19;
 constexpr int FORMAT_RGB = 0, FORMAT_RGBA = 1, FORMAT_LA = 2;
+constexpr int MODE8_RGBA_OFFSET = 5, MODE8_ETC1_FLAGS_OFFSET = 37;
 constexpr int FAM_NONE = -1, FAM_2 = 0, FAM_3 = 1, FAM_23 = 2, FAM_M1 = 3;
 
 // UASTC modes (ModeCfg + field offsets; bc7 = UASTC_TO_BC7_MODES[id],
@@ -28,6 +29,7 @@ template <> struct Mode<0> {
   static constexpr int pattern_bits = 0;
   static constexpr int pattern_count = 1;
   static constexpr int endpoint_count = 6;
+  static constexpr int ofs_trans_flags = 4;
   static constexpr int ofs_compsel = 19;
   static constexpr int ofs_pattern = 19;
   static constexpr int ofs_endpoints = 19;
@@ -54,6 +56,7 @@ template <> struct Mode<1> {
   static constexpr int pattern_bits = 0;
   static constexpr int pattern_count = 1;
   static constexpr int endpoint_count = 6;
+  static constexpr int ofs_trans_flags = 6;
   static constexpr int ofs_compsel = 21;
   static constexpr int ofs_pattern = 21;
   static constexpr int ofs_endpoints = 21;
@@ -80,6 +83,7 @@ template <> struct Mode<2> {
   static constexpr int pattern_bits = 5;
   static constexpr int pattern_count = 30;
   static constexpr int endpoint_count = 12;
+  static constexpr int ofs_trans_flags = 5;
   static constexpr int ofs_compsel = 20;
   static constexpr int ofs_pattern = 20;
   static constexpr int ofs_endpoints = 25;
@@ -106,6 +110,7 @@ template <> struct Mode<3> {
   static constexpr int pattern_bits = 4;
   static constexpr int pattern_count = 11;
   static constexpr int endpoint_count = 18;
+  static constexpr int ofs_trans_flags = 5;
   static constexpr int ofs_compsel = 20;
   static constexpr int ofs_pattern = 20;
   static constexpr int ofs_endpoints = 24;
@@ -132,6 +137,7 @@ template <> struct Mode<4> {
   static constexpr int pattern_bits = 5;
   static constexpr int pattern_count = 30;
   static constexpr int endpoint_count = 12;
+  static constexpr int ofs_trans_flags = 5;
   static constexpr int ofs_compsel = 20;
   static constexpr int ofs_pattern = 20;
   static constexpr int ofs_endpoints = 25;
@@ -158,6 +164,7 @@ template <> struct Mode<5> {
   static constexpr int pattern_bits = 0;
   static constexpr int pattern_count = 1;
   static constexpr int endpoint_count = 6;
+  static constexpr int ofs_trans_flags = 5;
   static constexpr int ofs_compsel = 20;
   static constexpr int ofs_pattern = 20;
   static constexpr int ofs_endpoints = 20;
@@ -184,6 +191,7 @@ template <> struct Mode<6> {
   static constexpr int pattern_bits = 0;
   static constexpr int pattern_count = 1;
   static constexpr int endpoint_count = 6;
+  static constexpr int ofs_trans_flags = 5;
   static constexpr int ofs_compsel = 20;
   static constexpr int ofs_pattern = 22;
   static constexpr int ofs_endpoints = 22;
@@ -210,6 +218,7 @@ template <> struct Mode<7> {
   static constexpr int pattern_bits = 5;
   static constexpr int pattern_count = 19;
   static constexpr int endpoint_count = 12;
+  static constexpr int ofs_trans_flags = 5;
   static constexpr int ofs_compsel = 20;
   static constexpr int ofs_pattern = 20;
   static constexpr int ofs_endpoints = 25;
@@ -236,6 +245,7 @@ template <> struct Mode<8> {
   static constexpr int pattern_bits = 0;
   static constexpr int pattern_count = 1;
   static constexpr int endpoint_count = 8;
+  static constexpr int ofs_trans_flags = 5;
   static constexpr int ofs_compsel = 5;
   static constexpr int ofs_pattern = 5;
   static constexpr int ofs_endpoints = 5;
@@ -262,6 +272,7 @@ template <> struct Mode<9> {
   static constexpr int pattern_bits = 5;
   static constexpr int pattern_count = 30;
   static constexpr int endpoint_count = 16;
+  static constexpr int ofs_trans_flags = 5;
   static constexpr int ofs_compsel = 28;
   static constexpr int ofs_pattern = 28;
   static constexpr int ofs_endpoints = 33;
@@ -288,6 +299,7 @@ template <> struct Mode<10> {
   static constexpr int pattern_bits = 0;
   static constexpr int pattern_count = 1;
   static constexpr int endpoint_count = 8;
+  static constexpr int ofs_trans_flags = 3;
   static constexpr int ofs_compsel = 20;
   static constexpr int ofs_pattern = 20;
   static constexpr int ofs_endpoints = 20;
@@ -314,6 +326,7 @@ template <> struct Mode<11> {
   static constexpr int pattern_bits = 0;
   static constexpr int pattern_count = 1;
   static constexpr int endpoint_count = 8;
+  static constexpr int ofs_trans_flags = 2;
   static constexpr int ofs_compsel = 19;
   static constexpr int ofs_pattern = 21;
   static constexpr int ofs_endpoints = 21;
@@ -340,6 +353,7 @@ template <> struct Mode<12> {
   static constexpr int pattern_bits = 0;
   static constexpr int pattern_count = 1;
   static constexpr int endpoint_count = 8;
+  static constexpr int ofs_trans_flags = 3;
   static constexpr int ofs_compsel = 20;
   static constexpr int ofs_pattern = 20;
   static constexpr int ofs_endpoints = 20;
@@ -366,6 +380,7 @@ template <> struct Mode<13> {
   static constexpr int pattern_bits = 0;
   static constexpr int pattern_count = 1;
   static constexpr int endpoint_count = 8;
+  static constexpr int ofs_trans_flags = 5;
   static constexpr int ofs_compsel = 28;
   static constexpr int ofs_pattern = 30;
   static constexpr int ofs_endpoints = 30;
@@ -392,6 +407,7 @@ template <> struct Mode<14> {
   static constexpr int pattern_bits = 0;
   static constexpr int pattern_count = 1;
   static constexpr int endpoint_count = 8;
+  static constexpr int ofs_trans_flags = 5;
   static constexpr int ofs_compsel = 28;
   static constexpr int ofs_pattern = 28;
   static constexpr int ofs_endpoints = 28;
@@ -418,6 +434,7 @@ template <> struct Mode<15> {
   static constexpr int pattern_bits = 0;
   static constexpr int pattern_count = 1;
   static constexpr int endpoint_count = 4;
+  static constexpr int ofs_trans_flags = 7;
   static constexpr int ofs_compsel = 30;
   static constexpr int ofs_pattern = 30;
   static constexpr int ofs_endpoints = 30;
@@ -444,6 +461,7 @@ template <> struct Mode<16> {
   static constexpr int pattern_bits = 5;
   static constexpr int pattern_count = 30;
   static constexpr int endpoint_count = 8;
+  static constexpr int ofs_trans_flags = 6;
   static constexpr int ofs_compsel = 29;
   static constexpr int ofs_pattern = 29;
   static constexpr int ofs_endpoints = 34;
@@ -470,6 +488,7 @@ template <> struct Mode<17> {
   static constexpr int pattern_bits = 0;
   static constexpr int pattern_count = 1;
   static constexpr int endpoint_count = 4;
+  static constexpr int ofs_trans_flags = 6;
   static constexpr int ofs_compsel = 29;
   static constexpr int ofs_pattern = 29;
   static constexpr int ofs_endpoints = 29;
@@ -496,6 +515,7 @@ template <> struct Mode<18> {
   static constexpr int pattern_bits = 0;
   static constexpr int pattern_count = 1;
   static constexpr int endpoint_count = 6;
+  static constexpr int ofs_trans_flags = 4;
   static constexpr int ofs_compsel = 19;
   static constexpr int ofs_pattern = 19;
   static constexpr int ofs_endpoints = 19;
@@ -992,6 +1012,25 @@ UB_TABLE uint16_t BC7_MODE_6_OPTIMAL_PACKED[257] = {
   16360, 16233, 16234, 16362, 16363, 16236, 16109, 16365, 16238, 16239, 16367, 16368, 16241, 16242, 16370, 16371,
   16244, 16245, 16373, 16374, 16247, 16248, 16376, 16377, 16250, 16251, 16379, 16380, 16253, 16254, 16382, 16383,
   16383
+};
+UB_TABLE uint32_t ETC1_MOD_PACKED[8] = {
+  0x00000802, 0x00001105, 0x00001d09, 0x00002a0d, 0x00003c12, 0x00005018, 0x00006a21, 0x0000b72f
+};
+UB_TABLE uint32_t ETC_BIAS_PACKED[32] = {
+  0x00000555, 0x00000596, 0x00000aa9, 0x00000659, 0x0000069a, 0x00000aa6, 0x00000a9a, 0x00000aab,
+  0x00000eaa, 0x00000965, 0x00000000, 0x00000aae, 0x00000a69, 0x00000aaa, 0x00000aeb, 0x00000aba,
+  0x00000bae, 0x00000bef, 0x00000a6a, 0x000009aa, 0x000006aa, 0x00000aea, 0x00000eba, 0x00000efb,
+  0x00000baa, 0x00000fbe, 0x00000fff, 0x00000a95, 0x0000057f, 0x00000fea, 0x0000056a, 0x00000abf
+};
+UB_TABLE uint32_t EAC_MOD_PACKED[32] = {
+  0x0006090c, 0x1d171411, 0x0205080c, 0x1b181511, 0x02070a0d, 0x1b161310, 0x02090b0d, 0x1b141210,
+  0x0307090c, 0x1a161411, 0x0406080c, 0x19171511, 0x0407080b, 0x19161512, 0x04070a0c, 0x19161311,
+  0x0507090d, 0x18161410, 0x05070a0d, 0x18161310, 0x05070b0d, 0x18161210, 0x05080a0d, 0x18151310,
+  0x05080b0c, 0x18151211, 0x050c0d0e, 0x1811100f, 0x0607090b, 0x17161412, 0x06080a0c, 0x17151311
+};
+UB_TABLE uint32_t EAC_FRACTION_BITS[16] = {
+  0x3f0469ee, 0x3f051eb8, 0x3f051eb8, 0x3f051eb8, 0x3f0590b2, 0x3f061862, 0x3f061862, 0x3f061862,
+  0x3f06bca2, 0x3f06bca2, 0x3f06bca2, 0x3f06bca2, 0x3f06bca2, 0x3f06bca2, 0x3f078788, 0x3f078788
 };
 
 }  // namespace ub

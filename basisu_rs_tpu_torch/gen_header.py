@@ -2,7 +2,8 @@
 
     python -m basisu_rs_tpu_torch.gen_header    # rewrite the header
 
-The header carries every constant the BC7, ASTC and RGBA kernels need:
+The header carries every constant the BC7, ASTC, RGBA, ETC1 and ETC2
+kernels need:
 per-mode static configuration as `Mode<M>` / `Bc7Mode<B>` / `BiseRange<R>`
 / `Family<F>` traits (compile-time constants, so every bit offset folds),
 and the
@@ -22,6 +23,8 @@ from .tables import (
     BC7_MODES,
     BISE_RANGES,
     FAMILIES,
+    MODE8_ETC1_FLAGS_OFFSET,
+    MODE8_RGBA_OFFSET,
     MODES,
     bc7_mode_of,
     np_tables,
@@ -74,6 +77,7 @@ def _mode_fields(cfg) -> dict:
         "pattern_bits": (i, cfg.pattern_bits),
         "pattern_count": (i, cfg.pattern_count),
         "endpoint_count": (i, cfg.endpoint_count),
+        "ofs_trans_flags": (i, ofs["trans_flags"]),
         "ofs_compsel": (i, ofs["compsel"]),
         "ofs_pattern": (i, ofs["pattern"]),
         "ofs_endpoints": (i, ofs["endpoints"]),
@@ -107,6 +111,7 @@ def render() -> str:
         "",
         "constexpr int INVALID_MODE = 19;",
         "constexpr int FORMAT_RGB = 0, FORMAT_RGBA = 1, FORMAT_LA = 2;",
+        f"constexpr int MODE8_RGBA_OFFSET = {MODE8_RGBA_OFFSET}, MODE8_ETC1_FLAGS_OFFSET = {MODE8_ETC1_FLAGS_OFFSET};",
         "constexpr int FAM_NONE = -1, "
         + ", ".join(f"FAM_{n.upper()} = {k}" for k, n in enumerate(FAMILIES))
         + ";",

@@ -43,7 +43,13 @@ NVCC_FLAGS = (
 GXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 
 # target -> C launch entry point of its per-mode kernels (csrc/uastc_<target>.cu)
-LAUNCH = {"bc7": "uastc_bc7_launch", "astc": "uastc_astc_launch", "rgba": "uastc_rgba_launch"}
+LAUNCH = {
+    "bc7": "uastc_bc7_launch",
+    "astc": "uastc_astc_launch",
+    "rgba": "uastc_rgba_launch",
+    "etc1": "uastc_etc1_launch",
+    "etc2": "uastc_etc2_launch",
+}
 
 
 def nvcc_path() -> str:
@@ -170,7 +176,7 @@ def build_log() -> str:
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
-_KERNEL = re.compile(r"\d(Bc7|Astc|Rgba)ILi(\d+)E")
+_KERNEL = re.compile(r"\d(Bc7|Astc|Rgba|Etc1|Etc2)ILi(\d+)E")
 
 
 def parse_ptxas(text: str) -> dict:

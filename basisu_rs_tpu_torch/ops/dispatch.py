@@ -1,13 +1,13 @@
 """Batch transcode dispatch: mode partition on the device + one kernel launch
 per present UASTC mode.
 
-Port of `basisu_rs_tpu/ops/dispatch.py` for the targets "bc7", "astc" and
-"rgba".  The partition runs where the blocks are: the mode of every block is
-MODE_LUT[b0 & 0x7F], a stable argsort groups the block indices by mode, and
-a bincount sizes the groups; reading the 20 counts is the one host sync.
-Each present mode then gets one launch that reads and writes its rows in
-place through its slice of the sorted indices, so there is no gather or
-scatter pass.  Blocks of the invalid mode 19 come out zero with err set.
+Port of `basisu_rs_tpu/ops/dispatch.py` for every UASTC target: "bc7",
+"astc", "rgba", "etc1" and "etc2".  The partition runs where the blocks
+are: the mode of every block is MODE_LUT[b0 & 0x7F], a stable argsort
+groups the block indices by mode, and a bincount sizes the groups; reading
+the 20 counts is the one host sync.  Each present mode then gets one launch
+that reads and writes its rows in place through its slice of the sorted
+indices, so there is no gather or scatter pass.  Blocks of the invalid mode 19 come out zero with err set.
 Groups are not padded: the power-of-two buckets of the JAX package only
 bound its recompiles.
 """
@@ -19,19 +19,10 @@ import torch
 from ..tables import INVALID_MODE, device_tables
 from .kernels import OUT_BYTES, TARGETS, mode_kernel
 
-# ROADMAP.md Queue 1 item that ports each remaining target.
-_NOT_PORTED = {"etc1": 8, "etc2": 8}
-
 
 def check_target(target: str) -> None:
-    if target in TARGETS:
-        return
-    if target in _NOT_PORTED:
-        raise NotImplementedError(
-            f"target {target!r} is not ported to PyTorch yet "
-            f"(ROADMAP.md Queue 1 item {_NOT_PORTED[target]})"
-        )
-    raise NotImplementedError(f"unknown target {target!r}; the port has {', '.join(map(repr, TARGETS))}")
+    if target not in TARGETS:
+        raise NotImplementedError(f"unknown target {target!r}; the port has {', '.join(map(repr, TARGETS))}")
 
 
 def block_modes(blocks: torch.Tensor) -> torch.Tensor:
@@ -42,9 +33,11 @@ def block_modes(blocks: torch.Tensor) -> torch.Tensor:
 
 def transcode_blocks(blocks: torch.Tensor, target: str = "bc7"):
     """uint8 [N,16] UASTC blocks -> (out, err bool [N]) on the blocks'
-    device.  out is uint8 [N,16] block bytes for "bc7" and "astc", and for
-    "rgba" the torch.uint32 [N,16] view of the kernel's uint8 [N,64] texel
-    rows (little-endian RGBA words, as the JAX package's uint32 [N,16]).
+    device.  out is uint8 [N, OUT_BYTES[target]] block bytes for "bc7",
+    "astc" (16), "etc1" (8) and "etc2" (16: the EAC alpha block, then the
+    ETC1 block), and for "rgba" the torch.uint32 [N,16] view of the
+    kernel's uint8 [N,64] texel rows (little-endian RGBA words, as the JAX
+    package's uint32 [N,16]).
     err marks an invalid mode or pattern index."""
     check_target(target)
     n = blocks.shape[0]

@@ -3,16 +3,17 @@ behind a PyTorch call.
 
 Counterpart of `basisu_rs_tpu/ops/pallas_kernels.py::pallas_mode_kernel`:
 `mode_kernel(target, mode)(blocks) -> (out, err)` for the targets "bc7"
-(K1), "astc" (K2) and "rgba" (K3).  Blocks travel as uint8 `[N, 16]` rows
-(the same 16 bytes as the JAX package's uint32 `[N, 4]` words; torch's
-uint32 has too few operators to be a word type), the output as uint8
-`[N, OUT_BYTES[target]]` rows, and an optional int64 `index` names the rows
-of that mode, which the kernel reads and writes in place.  The wrapper
-checks that every index lies in [0, N) (one host sync) unless the caller
-built the index itself and passes `check_index=False`, as the dispatch does.
+(K1), "astc" (K2), "rgba" (K3), "etc1" (K4) and "etc2" (K5).  Blocks travel
+as uint8 `[N, 16]` rows (the same 16 bytes as the JAX package's uint32
+`[N, 4]` words; torch's uint32 has too few operators to be a word type),
+the output as uint8 `[N, OUT_BYTES[target]]` rows, and an optional int64
+`index` names the rows of that mode, which the kernel reads and writes in
+place.  The wrapper checks that every index lies in [0, N) (one host sync)
+unless the caller built the index itself and passes `check_index=False`, as
+the dispatch does.
 
-A tensor on the CPU goes to the plain version (`ops/{bc7,astc,rgba}.py`); a
-CUDA tensor goes to the kernel, or the call raises.  Each wrapper counts its
+A tensor on the CPU goes to the plain version (`ops/{bc7,astc,rgba,etc}.py`);
+a CUDA tensor goes to the kernel, or the call raises.  Each wrapper counts its
 kernel launches (`launches`) and its plain-version calls (`plain_calls`).
 """
 
@@ -20,13 +21,30 @@ from __future__ import annotations
 
 import torch
 
-from . import astc, bc7, build, rgba
+from . import astc, bc7, build, etc, rgba
 
 N_MODES = 19
-TARGETS = ("bc7", "astc", "rgba")
-OUT_BYTES = {"bc7": 16, "astc": 16, "rgba": 64}
-# the plain PyTorch version of each target's launch (transcode_rows)
-PLAIN = {"bc7": bc7.transcode_rows, "astc": astc.transcode_rows, "rgba": rgba.transcode_rows}
+TARGETS = ("bc7", "astc", "rgba", "etc1", "etc2")
+OUT_BYTES = {"bc7": 16, "astc": 16, "rgba": 64, "etc1": 8, "etc2": 16}
+# the plain PyTorch version of each target's launch
+PLAIN = {
+    "bc7": bc7.transcode_rows,
+    "astc": astc.transcode_rows,
+    "rgba": rgba.transcode_rows,
+    "etc1": etc.transcode_etc1_rows,
+    "etc2": etc.transcode_etc2_rows,
+}
+
+
+def check_alignment(blocks, out) -> None:
+    """The kernels load 16-byte block rows and store each output row in the
+    widest vectors that fit it: blocks must be 16-byte aligned, out
+    min(16, out row bytes)-byte aligned."""
+    if blocks.data_ptr() % 16:
+        raise ValueError("blocks must be 16-byte aligned")
+    align = min(16, out.shape[1])
+    if out.data_ptr() % align:
+        raise ValueError(f"out must be {align}-byte aligned")
 
 
 class ModeKernel:
@@ -84,9 +102,7 @@ class ModeKernel:
     def _launch(self, blocks, index, n, out, err) -> None:
         if n >= 2**31:
             raise ValueError(f"{n} blocks exceed one launch (2^31 - 1)")
-        for t in (blocks, out):
-            if t.data_ptr() % 16:
-                raise ValueError("blocks and out must be 16-byte aligned")
+        check_alignment(blocks, out)
         launch = getattr(build.load(), build.LAUNCH[self.target])
         with torch.cuda.device(blocks.device):
             stream = torch.cuda.current_stream(blocks.device).cuda_stream

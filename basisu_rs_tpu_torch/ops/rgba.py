@@ -34,9 +34,10 @@ def pack_rgba(r, g, b, a):
     return r | (g << 8) | (b << 16) | (a << 24)
 
 
-def uastc_to_rgba_channels(cfg: ModeCfg, lanes):
+def uastc_to_rgba_channels(cfg: ModeCfg, lanes, need_alpha: bool = True):
     """Returns (texels, err): texels = list of 16 per-texel [r, g, b, a]
-    int64 [N] values in 0..255."""
+    int64 [N] values in 0..255.  need_alpha=False skips the alpha channel
+    (slot 3 holds None): the ETC1 target never reads it."""
     if cfg.id == 8:
         rgba = decode_mode8_rgba(lanes)
         return [rgba] * 16, torch.zeros(lane_shape(lanes), dtype=torch.bool, device=lanes.device)
@@ -46,12 +47,14 @@ def uastc_to_rgba_channels(cfg: ModeCfg, lanes):
     wq = [unquant_weight(w, cfg.weight_bits) for w in f.weights]
     pairs = assemble_endpoint_pairs(cfg, f.endpoints)
     nsub = cfg.subset_count
+    nch = 4 if need_alpha else 3
 
     # A channel whose endpoints are one shared tensor (RGB alpha, 255) is
     # constant: the lerp of equal endpoints is the identity.
-    const = [all(pairs[s][k][c] is pairs[0][0][c] for s in range(nsub) for k in (0, 1)) for c in range(4)]
+    const = [all(pairs[s][k][c] is pairs[0][0][c] for s in range(nsub) for k in (0, 1)) for c in range(nch)]
     # (L0, D) halves of the factored lerp, once per subset and channel
-    hoisted = [[interp_hoist(pairs[s][0][c], pairs[s][1][c]) for c in range(4)] for s in range(nsub)]
+    hoisted = [[interp_hoist(pairs[s][0][c], pairs[s][1][c]) for c in range(nch)] for s in range(nsub)]
+    pad = [] if need_alpha else [None]
 
     texels = []
     if nsub == 1:
@@ -66,14 +69,14 @@ def uastc_to_rgba_channels(cfg: ModeCfg, lanes):
         for i in range(16):
             texels.append([
                 pairs[0][0][c] if const[c] else interp_eval(*hoisted[0][c], plane_w[i][c])
-                for c in range(4)
-            ])
+                for c in range(nch)
+            ] + pad)
     else:
         subsets = subsets_for_texels(cfg, f.pat, tables)
         for i in range(16):
             s_mask = [subsets[i] == s for s in range(1, nsub)]
             px = []
-            for c in range(4):
+            for c in range(nch):
                 if const[c]:
                     px.append(pairs[0][0][c])
                     continue
@@ -82,7 +85,7 @@ def uastc_to_rgba_channels(cfg: ModeCfg, lanes):
                     L0 = torch.where(s_mask[s - 1], hoisted[s][c][0], L0)
                     D = torch.where(s_mask[s - 1], hoisted[s][c][1], D)
                 px.append(interp_eval(L0, D, wq[i]))
-            texels.append(px)
+            texels.append(px + pad)
     return texels, f.err
 
 

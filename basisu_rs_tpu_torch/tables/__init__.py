@@ -3,7 +3,8 @@
 The modules of this package are copies of the pure-numpy tables of the JAX
 package (`basisu_rs_tpu/tables/`): `generated_tables`, `modes`, `bise` and
 `bc7_tables`, and below, the parts of its `__init__` that the port uses
-(the pattern families, their packed per-pattern words, `np_tables`).  The
+(the pattern families, their packed per-pattern words, `etc_bias_deltas`,
+`np_tables`).  The
 port imports nothing of the JAX package; tests/test_torch_tables.py holds
 every table and packed array here equal to the JAX package's, and nothing
 else keeps the two in step.
@@ -24,7 +25,7 @@ import numpy as np
 from . import generated_tables as G
 from .bc7_tables import BC7_MODES, Bc7Mode, bc7_mode_5_optimal_packed, bc7_mode_6_optimal_packed
 from .bise import BISE_RANGES, BiseRange, unquant_lut
-from .modes import LA, MODE8_RGBA_OFFSET, MODES, RGB, RGBA, UASTC_BLOCK_SIZE, ModeCfg
+from .modes import LA, MODE8_ETC1_FLAGS_OFFSET, MODE8_RGBA_OFFSET, MODES, RGB, RGBA, UASTC_BLOCK_SIZE, ModeCfg
 
 
 def _pack2(rows) -> np.ndarray:
@@ -219,14 +220,56 @@ def fam_bc7_weight_preshift_packed(fam_name: str) -> np.ndarray:
 
 
 @lru_cache(maxsize=None)
+def etc_bias_deltas() -> np.ndarray:
+    """[32 bias, 2 subblock, 3 channel] int8 ETC1 bias nudges
+    (reference: src/target_formats/etc.rs:203-234)."""
+    d = np.zeros((32, 2, 3), np.int8)
+    s_divs = (1, 3, 9)
+    for bias in range(32):
+        for sb in range(2):
+            for c in range(3):
+                special = {
+                    2: 0 if sb else (-1 if c == 0 else 0),
+                    5: 0 if sb else (-1 if c == 1 else 0),
+                    6: 0 if sb else (-1 if c == 2 else 0),
+                    7: 0 if sb else (1 if c == 0 else 0),
+                    11: 0 if sb else (1 if c == 1 else 0),
+                    15: 0 if sb else (1 if c == 2 else 0),
+                    18: (-1 if c == 0 else 0) if sb else 0,
+                    19: (-1 if c == 1 else 0) if sb else 0,
+                    20: (-1 if c == 2 else 0) if sb else 0,
+                    21: (1 if c == 0 else 0) if sb else 0,
+                    24: (1 if c == 1 else 0) if sb else 0,
+                    8: (1 if c == 2 else 0) if sb else 0,
+                    10: -2,
+                    27: 0 if sb else -1,
+                    28: -1 if sb else 1,
+                    29: 1 if sb else 0,
+                    30: -1 if sb else 0,
+                    31: 0 if sb else 1,
+                }
+                d[bias, sb, c] = special.get(bias, ((bias // s_divs[c]) % 3) - 1)
+    return d
+
+
+@lru_cache(maxsize=None)
 def np_tables() -> dict:
     """The numpy constant arrays of the UASTC paths, keyed by name."""
+    etc2_mod = np.asarray(G.ETC2_ALPHA_MODIFIERS, np.int32)
+    mod_min = etc2_mod[:, 3].astype(np.float32)
+    mod_range = (etc2_mod[:, 7] - etc2_mod[:, 3]).astype(np.float32)
     return {
         "MODE_LUT": np.asarray(G.MODE_LUT, np.uint8),
         "ASTC_QUINT_ENCODE": np.asarray(G.ASTC_QUINT_ENCODE_LUT, np.uint8),
         "ASTC_TRIT_ENCODE": np.asarray(G.ASTC_TRIT_ENCODE_LUT, np.uint8),
         "UASTC_TO_ASTC_BLOCK_MODE_13": np.asarray(G.UASTC_TO_ASTC_BLOCK_MODE_13, np.uint16),
         "UASTC_TO_BC7_MODES": np.asarray(G.UASTC_TO_BC7_MODES, np.uint8),
+        "ETC1_MODIFIERS": np.asarray(G.ETC1_MODIFIERS, np.int32),
+        "ETC2_ALPHA_MODIFIERS": etc2_mod,
+        # fl(-mod_min / range) per EAC table row (etc.rs:305), IEEE f32
+        "ETC2_ALPHA_FRACTION": (-mod_min / mod_range).astype(np.float32),
+        "SELECTOR_ID_TO_ETC1": np.array([0b11, 0b10, 0b00, 0b01], np.uint8),
+        "ETC_BIAS_DELTAS": etc_bias_deltas(),
     }
 
 
@@ -237,6 +280,7 @@ from .flat import (  # noqa: E402
     Layout,
     bc7_mode_of,
     device_tables,
+    etc_packed_tables,
     family_consts,
     family_name,
     inv_relpos_bounds,
@@ -252,6 +296,7 @@ __all__ = [
     "INVALID_MODE",
     "LA",
     "Layout",
+    "MODE8_ETC1_FLAGS_OFFSET",
     "MODE8_RGBA_OFFSET",
     "MODES",
     "ModeCfg",
@@ -263,6 +308,8 @@ __all__ = [
     "bc7_mode_6_optimal_packed",
     "bc7_mode_of",
     "device_tables",
+    "etc_bias_deltas",
+    "etc_packed_tables",
     "fam_anchors_before",
     "fam_anchors_before_packed",
     "fam_bc7_anchors_before",

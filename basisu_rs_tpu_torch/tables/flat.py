@@ -1,8 +1,8 @@
 """The flat kernel layout of the constant tables.
 
-`kernel_tables()` lays out every table the UASTC -> BC7 / ASTC / RGBA paths
-index at run time as flat arrays (one array per kind, families and ranges
-concatenated, with static base offsets).  The same layout feeds both the
+`kernel_tables()` lays out every table the UASTC -> BC7 / ASTC / RGBA /
+ETC1 / ETC2 paths index at run time as flat arrays (one array per kind,
+families and ranges concatenated, with static base offsets).  The same layout feeds both the
 plain PyTorch versions (`device_tables`) and the generated CUDA header
 (`gen_header.py` -> `csrc/uastc_tables.cuh`).
 """
@@ -91,9 +91,9 @@ class Layout:
 
 @lru_cache(maxsize=None)
 def kernel_tables():
-    """(arrays, layout): every run-time-indexed table of the BC7, ASTC and
-    RGBA paths as flat numpy arrays (dtype = the CUDA header's element
-    type)."""
+    """(arrays, layout): every run-time-indexed table of the BC7, ASTC,
+    RGBA, ETC1 and ETC2 paths as flat numpy arrays (dtype = the CUDA
+    header's element type)."""
     t = np_tables()
     arrays: dict = {k: t[k].astype(np.uint8) for k in ("MODE_LUT", "ASTC_QUINT_ENCODE", "ASTC_TRIT_ENCODE")}
 
@@ -130,7 +130,34 @@ def kernel_tables():
 
     arrays["BC7_MODE_5_OPTIMAL_PACKED"] = bc7_mode_5_optimal_packed().astype(np.uint16)
     arrays["BC7_MODE_6_OPTIMAL_PACKED"] = bc7_mode_6_optimal_packed().astype(np.uint16)
+    arrays.update(etc_packed_tables())
     return arrays, Layout(fam_base, unquant_base, inv_base)
+
+
+def etc_packed_tables() -> dict:
+    """The ETC tables of K4/K5 in the packed forms of the JAX package's
+    `ops/etc.py`, each one lookup a block:
+      ETC1_MOD_PACKED[inten]      small | big << 8 of the row [-big, -small, small, big]
+      ETC_BIAS_PACKED[bias]       delta + 2 in 2 bits at 2*(3*subblock + channel)
+      EAC_MOD_PACKED[2*tbl + h]   modifiers 4h..4h+3 of EAC table tbl, + 15, a byte each
+      EAC_FRACTION_BITS[tbl]      the f32 bit pattern of ETC2_ALPHA_FRACTION[tbl]"""
+    t = np_tables()
+    mods = t["ETC1_MODIFIERS"]
+    assert (mods[:, 0] == -mods[:, 3]).all() and (mods[:, 1] == -mods[:, 2]).all()
+    deltas = t["ETC_BIAS_DELTAS"].astype(np.uint32) + 2
+    bias = np.zeros(32, np.uint32)
+    for sb in range(2):
+        for c in range(3):
+            bias |= (deltas[:, sb, c] & 3) << (2 * (3 * sb + c))
+    eac = (t["ETC2_ALPHA_MODIFIERS"] + 15).astype(np.uint32)  # 0..29
+    assert ((eac >= 0) & (eac < 256)).all()
+    eac_words = eac.reshape(16, 2, 4) << (8 * np.arange(4, dtype=np.uint32))
+    return {
+        "ETC1_MOD_PACKED": (mods[:, 2] | (mods[:, 3] << 8)).astype(np.uint32),
+        "ETC_BIAS_PACKED": bias,
+        "EAC_MOD_PACKED": np.bitwise_or.reduce(eac_words, axis=2).reshape(32).astype(np.uint32),
+        "EAC_FRACTION_BITS": t["ETC2_ALPHA_FRACTION"].view(np.uint32).copy(),
+    }
 
 
 @lru_cache(maxsize=None)

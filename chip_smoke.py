@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's UASTC paths (to BC7, ASTC and RGBA, for blocks
-and for .basis files) on one CUDA card.
+"""Drive the PyTorch port's UASTC paths (to BC7, ASTC, RGBA, ETC1 and ETC2,
+for blocks and for .basis files) on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
   1. card facts (nvidia-smi name and power limit, torch and CUDA versions);
   2. nvcc build of csrc/*.cu for sm_90a (one nvcc per source, in parallel),
-     with seconds and the ptxas register/spill report of all 57 kernels
-     (K1 BC7, K2 ASTC, K3 RGBA, x 19 UASTC modes);
+     with seconds and the ptxas register/spill report of all 95 kernels
+     (K1 BC7, K2 ASTC, K3 RGBA, K4 ETC1, K5 ETC2, x 19 UASTC modes);
   3. per UASTC mode 0-18: the BC7 kernel against its plain PyTorch version
      on the card, on that mode's golden blocks plus 65,536 seeded random
      blocks of the mode (invalid pattern indices included), with and
@@ -34,7 +34,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      `read_to_bc7`, `read_to_astc` and `read_to_rgba` and checked image by
      image (raster order for RGBA), with the launch counters of each call,
      the time split of one call, and a corrupt-CRC file and a file with
-     invalid blocks that must raise the reference's messages.
+     invalid blocks that must raise the reference's messages;
+ 10. as phase 3, for the ETC1 and ETC2 kernels;
+ 11. as phase 7, for ETC1 and ETC2 (`transcode_uastc_block_to_etc1/etc2`);
+ 12. as phase 5, for ETC1 (128 MiB in, 64 MiB out) and ETC2 (128 MiB in,
+     128 MiB out);
+ 13. as phase 9, for `read_to_etc1` and `read_to_etc2` on the same file.
 The last two lines before the final one are a JSON line of per-kernel
 results and the card's name and power limit; the final line is the
 `{"ok": true, "device": ...}` result.  Imports torch, numpy and
@@ -65,8 +70,8 @@ PRELOAD_CYCLES = 20_000_000  # ~10 ms of sleep at 2 GHz: longer than any enqueue
 TEXELS_PER_BLOCK = 16
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
 INDEX_BYTES = 8  # the dispatch's int64 index of a block, read once by its launch
-TARGETS = ("bc7", "astc", "rgba")
-OP_NAME = {"bc7": "Bc7", "astc": "Astc", "rgba": "Rgba"}
+TARGETS = ("bc7", "astc", "rgba", "etc1", "etc2")
+OP_NAME = {"bc7": "Bc7", "astc": "Astc", "rgba": "Rgba", "etc1": "Etc1", "etc2": "Etc2"}
 REPLACES = "basisu_rs_tpu/ops/pallas_kernels.py:150"
 SLICES, SLICE_BLOCKS_X = 8, 1024  # 8 slices of 1024x1024 blocks = 2^23 blocks
 
@@ -143,8 +148,12 @@ def main() -> int:
         BasisError,
         read_to_astc,
         read_to_bc7,
+        read_to_etc1,
+        read_to_etc2,
         read_to_rgba,
         transcode_uastc_block_to_astc,
+        transcode_uastc_block_to_etc1,
+        transcode_uastc_block_to_etc2,
         transcode_uastc_blocks,
         unpack_uastc_block_to_rgba,
     )
@@ -341,32 +350,39 @@ def main() -> int:
     for t in ("astc", "rgba"):
         kernel_vs_plain(6, t)
 
-    # ---- phase 7: golden corpus to ASTC and RGBA through the API -------------
-    for t in ("astc", "rgba"):
-        out, err = transcode_uastc_blocks(golden_in, t, device="cuda")
-        require(out.device.type == "cuda", "API result is not on the card")
-        require(not bool(err.any()), f"golden blocks flagged err ({t})")
-        got = out.cpu().numpy()
-        require(np.array_equal(got, golden[f"{t}_out"]), f"golden {t} mismatch")
-        _, err_bad = transcode_uastc_blocks(bad, t, device="cuda")
-        require(bool(err_bad.all()), f"invalid mode / pattern not flagged ({t})")
-    for fn in (transcode_uastc_block_to_astc, unpack_uastc_block_to_rgba):
-        for block, msg in ((bad[0], "invalid mode index"), (bad[1], "block pattern is not valid")):
-            try:
-                fn(block)
-            except BasisError as e:
-                require(str(e) == msg, f"{fn.__name__}: message {e!r}, expected {msg!r}")
-            else:
-                raise RuntimeError(f"{fn.__name__} accepted a bad block")
-    print(f"phase 7 golden: {len(golden_in)}/{len(golden_in)} ASTC and {len(golden_in)}/{len(golden_in)} "
-          f"RGBA pairs bit-exact on the card; invalid mode and pattern flagged, block functions raise "
-          f"the reference's messages [{card}]")
+    # ---- phases 7 and 11: golden corpus through the API ------------------------
+    def golden_api(phase: int, targets, block_fns) -> None:
+        for t in targets:
+            out, err = transcode_uastc_blocks(golden_in, t, device="cuda")
+            require(out.device.type == "cuda", "API result is not on the card")
+            require(not bool(err.any()), f"golden blocks flagged err ({t})")
+            got = out.cpu().numpy()
+            require(np.array_equal(got, golden[f"{t}_out"]), f"golden {t} mismatch")
+            _, err_bad = transcode_uastc_blocks(bad, t, device="cuda")
+            require(bool(err_bad.all()), f"invalid mode / pattern not flagged ({t})")
+        for fn, t in block_fns:
+            one = fn(golden_in[100])
+            require(np.array_equal(np.frombuffer(one, np.uint8) if isinstance(one, bytes) else one,
+                                   golden[f"{t}_out"][100]), f"{fn.__name__} of golden block 100")
+            for block, msg in ((bad[0], "invalid mode index"), (bad[1], "block pattern is not valid")):
+                try:
+                    fn(block)
+                except BasisError as e:
+                    require(str(e) == msg, f"{fn.__name__}: message {e!r}, expected {msg!r}")
+                else:
+                    raise RuntimeError(f"{fn.__name__} accepted a bad block")
+        print(f"phase {phase} golden: " + " and ".join(f"{len(golden_in)}/{len(golden_in)} {t.upper()}"
+                                                       for t in targets)
+              + f" pairs bit-exact on the card; invalid mode and pattern flagged, block functions raise "
+              f"the reference's messages [{card}]")
+
+    golden_api(7, ("astc", "rgba"), ((transcode_uastc_block_to_astc, "astc"), (unpack_uastc_block_to_rgba, "rgba")))
 
     # ---- phase 8: ASTC and RGBA main paths at full size ----------------------
     for t in ("astc", "rgba"):
         main_path(8, t)
 
-    # ---- phase 9: the file path at full size ----------------------------------
+    # ---- phases 9 and 13: the file path at full size ---------------------------
     per_slice = SLICE_BLOCKS_X * SLICE_BLOCKS_X
     t0 = time.perf_counter()
     slices = [
@@ -377,9 +393,13 @@ def main() -> int:
     buf = write_uastc_basis(slices)
     print(f"phase 9 file: {SLICES} slices of {4 * SLICE_BLOCKS_X}x{4 * SLICE_BLOCKS_X} texels, {len(buf)} bytes, "
           f"written in {time.perf_counter() - t0:.2f} s (host)")
-    readers = {"bc7": read_to_bc7, "astc": read_to_astc, "rgba": lambda b: read_to_rgba(b)[1]}
+    readers = {"bc7": read_to_bc7, "astc": read_to_astc, "rgba": lambda b: read_to_rgba(b)[1],
+               "etc1": read_to_etc1, "etc2": read_to_etc2}
     w = 4 * SLICE_BLOCKS_X
-    for t, reader in readers.items():
+    file_ms = {}
+
+    def file_path(phase: int, t: str) -> None:
+        reader = readers[t]
         reader(buf)  # warm-up
         torch.cuda.synchronize()
         kernels.reset_counts()
@@ -414,10 +434,11 @@ def main() -> int:
         if t == "rgba":
             split["RGBA reorder"] = host_ms(lambda: basis.rgba_images(out, slices_rows))
         split["whole call"] = host_ms(lambda: reader(buf))
+        file_ms[t] = split["whole call"]
         del blocks, out, err
-        print(f"phase 9 {t} file [{card}]: {SLICES} images bit-exact (w, h, stride, data); launches per mode "
+        print(f"phase {phase} {t} file [{card}]: {SLICES} images bit-exact (w, h, stride, data); launches per mode "
               f"{launches}; plain-version calls {plain_calls}")
-        print(f"phase 9 {t} split [{card}] (host clock + sync, median of {FILE_REPS}, ms): "
+        print(f"phase {phase} {t} split [{card}] (host clock + sync, median of {FILE_REPS}, ms): "
               + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
               + f" = {mtex(N_FULL, split['whole call']):.1f} Mtexels/s whole call")
         torch.cuda.empty_cache()
@@ -432,17 +453,33 @@ def main() -> int:
     later[7] = bad[1]  # ... comes before an invalid pattern in slice 6
     bad_file[6]["blocks"] = later
     bad_buf = write_uastc_basis(bad_file)
-    for name, b, msg in (("corrupt CRC", bytes(corrupt), "Data CRC16 failed"),
-                         ("invalid blocks", bad_buf, "invalid mode index")):
-        for t, reader in readers.items():
-            try:
-                reader(b)
-            except BasisError as e:
-                require(str(e) == msg, f"{name} via {t}: message {e!r}, expected {msg!r}")
-            else:
-                raise RuntimeError(f"{name} file accepted by read_to_{t}")
-    print(f"phase 9 errors: a corrupt-CRC file and a file with invalid blocks raise the reference's "
-          f"messages through read_to_bc7/astc/rgba [{card}]")
+
+    def file_errors(phase: int, targets) -> None:
+        for name, b, msg in (("corrupt CRC", bytes(corrupt), "Data CRC16 failed"),
+                             ("invalid blocks", bad_buf, "invalid mode index")):
+            for t in targets:
+                try:
+                    readers[t](b)
+                except BasisError as e:
+                    require(str(e) == msg, f"{name} via {t}: message {e!r}, expected {msg!r}")
+                else:
+                    raise RuntimeError(f"{name} file accepted by read_to_{t}")
+        print(f"phase {phase} errors: a corrupt-CRC file and a file with invalid blocks raise the reference's "
+              f"messages through " + "/".join(f"read_to_{t}" for t in targets) + f" [{card}]")
+
+    for t in ("bc7", "astc", "rgba"):
+        file_path(9, t)
+    file_errors(9, ("bc7", "astc", "rgba"))
+
+    # ---- phases 10-13: the ETC1 and ETC2 kernels (K4, K5) ------------------------
+    for t in ("etc1", "etc2"):
+        kernel_vs_plain(10, t)
+    golden_api(11, ("etc1", "etc2"), ((transcode_uastc_block_to_etc1, "etc1"), (transcode_uastc_block_to_etc2, "etc2")))
+    for t in ("etc1", "etc2"):
+        main_path(12, t)
+    for t in ("etc1", "etc2"):
+        file_path(13, t)
+    file_errors(13, ("etc1", "etc2"))
 
     result = {
         "kernels": [

@@ -1,6 +1,6 @@
 """PyTorch port: the UASTC .basis file path (basisu_rs_tpu_torch/container/)
 against the JAX package's container: synthetic multi-slice UASTC files read
-through both packages' read_to_{rgba,astc,bc7,uastc} on the CPU, bit-exact
+through both packages' read_to_{rgba,astc,bc7,etc1,etc2,uastc} on the CPU, bit-exact
 (tolerance 0) on w, h, stride and data, the same error messages, the
 writer's bytes, and the host C++ CRC against its Python version."""
 
@@ -17,7 +17,7 @@ from basisu_rs_tpu_torch.container.crc import crc16, crc16_plain
 from basisu_rs_tpu_torch.ops import kernels
 
 CPU = "cpu"
-READERS = ["read_to_rgba", "read_to_astc", "read_to_bc7", "read_to_uastc"]
+READERS = ["read_to_rgba", "read_to_astc", "read_to_bc7", "read_to_etc1", "read_to_etc2", "read_to_uastc"]
 
 
 def _slices(golden, seed=0):
@@ -159,7 +159,7 @@ def test_first_failing_block_wins(golden):
     slices[0]["blocks"], slices[1]["blocks"] = b0, b1
     slices[2]["blocks"] = np.zeros((1, 15), np.uint8)
     buf = tw.write_uastc_basis(slices)
-    for reader in ("read_to_rgba", "read_to_astc", "read_to_bc7"):
+    for reader in ("read_to_rgba", "read_to_astc", "read_to_bc7", "read_to_etc1", "read_to_etc2"):
         with pytest.raises(JBasisError, match="block pattern is not valid"):
             getattr(jb, reader)(buf)
         with pytest.raises(tb.BasisError, match="block pattern is not valid"):
@@ -167,19 +167,29 @@ def test_first_failing_block_wins(golden):
 
 
 @pytest.mark.parametrize("reader", ["read_to_etc1", "read_to_etc2"])
-def test_etc_readers_not_ported(golden, reader):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8"):
-        getattr(tb, reader)(tw.write_uastc_basis(_slices(golden)), device=CPU)
+def test_etc_images_are_whole_blocks(golden, reader):
+    # one image per slice of 8-byte (ETC1) or 16-byte (ETC2) blocks, a row
+    # of blocks per stride, equal to the batch transcode of its blocks
+    slices = _slices(golden)
+    images = getattr(tb, reader)(tw.write_uastc_basis(slices), device=CPU)
+    size = 8 if reader == "read_to_etc1" else 16
+    for img, sl in zip(images, slices):
+        assert img.stride == size * sl["nbx"]
+        assert img.data.numel() == size * sl["nbx"] * sl["nby"]
+        out, _ = tb.transcode_uastc_blocks(sl["blocks"], reader[-4:], device=CPU)
+        np.testing.assert_array_equal(img.data.numpy(), out.numpy().reshape(-1))
 
 
 def test_etc1s_files(golden):
-    # an ETC1S file (no slices): read_to_rgba names its ROADMAP item; the
-    # block readers refuse the format with the JAX package's message
+    # an ETC1S file (no slices): read_to_rgba and read_to_etc1 name their
+    # ROADMAP item; the other readers refuse the format with the JAX
+    # package's message
     buf = tw._pack_header(data_size=0, data_crc16=crc16(b""), total_slices=0, total_images=0,
                           tex_format=0, flags=1, tex_type=0, slice_desc_ofs=77)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
-        tb.read_to_rgba(buf, device=CPU)
-    for reader in ("read_to_astc", "read_to_bc7", "read_to_uastc"):
+    for reader in ("read_to_rgba", "read_to_etc1"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
+            getattr(tb, reader)(buf, device=CPU)
+    for reader in ("read_to_astc", "read_to_bc7", "read_to_etc2", "read_to_uastc"):
         with pytest.raises(JBasisError) as jexc:
             getattr(jb, reader)(buf)
         with pytest.raises(tb.BasisError) as texc:

@@ -1,8 +1,7 @@
 """PyTorch port: the kernels' own per-block sources, compiled for the host.
 
-`basisu_rs_tpu_torch/csrc/uastc_{bc7,astc,rgba}.cuh` (over the shared
-`uastc_decode.cuh`) hold the per-block logic of K1, K2 and K3 behind a macro
-shim, so g++ builds the exact code the CUDA kernels run.  This test builds
+`basisu_rs_tpu_torch/csrc/uastc_{bc7,astc,rgba,etc}.cuh` (over the shared
+`uastc_decode.cuh`) hold the per-block logic of K1-K5 behind a macro shim, so g++ builds the exact code the CUDA kernels run.  This test builds
 them into a temporary directory, calls them over ctypes and holds every mode
 against the plain PyTorch versions (tolerance 0): shift, signedness and
 table-index faults show here without a card.  The package never loads this
@@ -18,12 +17,14 @@ import pytest
 import torch
 
 from basisu_rs_tpu.tables import np_tables
-from basisu_rs_tpu_torch.ops import astc, bc7, build, rgba
+from basisu_rs_tpu_torch.ops import build, kernels
+from torch_cases import bias_reference, eac_reference_selectors, etc1_selector_cases
 
 HOST_ENTRY = r"""
 #include <string.h>
 #include "uastc_astc.cuh"
 #include "uastc_bc7.cuh"
+#include "uastc_etc.cuh"
 #include "uastc_rgba.cuh"
 
 template <int M> struct Bc7 {
@@ -37,6 +38,14 @@ template <int M> struct Astc {
 template <int M> struct Rgba {
   static constexpr int kOut = 64;
   static bool run(const uint32_t (&l)[4], uint32_t (&o)[16]) { return ub::uastc_to_rgba<M>(l, o); }
+};
+template <int M> struct Etc1 {
+  static constexpr int kOut = 8;
+  static bool run(const uint32_t (&l)[4], uint32_t (&o)[2]) { return ub::uastc_to_etc1<M>(l, o); }
+};
+template <int M> struct Etc2 {
+  static constexpr int kOut = 16;
+  static bool run(const uint32_t (&l)[4], uint32_t (&o)[4]) { return ub::uastc_to_etc2<M>(l, o); }
 };
 
 template <class Op>
@@ -54,18 +63,46 @@ typedef void (*RunFn)(const uint8_t*, long long, uint8_t*, uint8_t*);
                    run<OP<5>>,  run<OP<6>>,  run<OP<7>>,  run<OP<8>>,  run<OP<9>>,  \
                    run<OP<10>>, run<OP<11>>, run<OP<12>>, run<OP<13>>, run<OP<14>>, \
                    run<OP<15>>, run<OP<16>>, run<OP<17>>, run<OP<18>>}
-static const RunFn kRun[3][19] = {TABLE(Bc7), TABLE(Astc), TABLE(Rgba)};
+static const RunFn kRun[5][19] = {TABLE(Bc7), TABLE(Astc), TABLE(Rgba), TABLE(Etc1), TABLE(Etc2)};
 
-// target: 0 bc7, 1 astc, 2 rgba
+// target: 0 bc7, 1 astc, 2 rgba, 3 etc1, 4 etc2
 extern "C" void uastc_host(int target, int mode, const uint8_t* in, long long n, uint8_t* out,
                            uint8_t* err) {
   kRun[target][mode](in, n, out, err);
 }
 
 extern "C" float fl_div255_host(int x) { return ub::fl_div255(x); }
+
+// The ETC pieces, batched for the exhaustive pins below.
+// EAC selector of every (centre, alpha) in 0..255 for one table and multiplier.
+extern "C" void eac_selectors_host(int tbl, int mult, uint8_t* out) {
+  for (int center = 0; center < 256; ++center) {
+    int32_t T[7];
+    ub::eac_thresholds(center, mult, ub::EAC_MOD_PACKED[2 * tbl], ub::EAC_MOD_PACKED[2 * tbl + 1], T);
+    for (int a = 0; a < 256; ++a) out[256 * center + a] = static_cast<uint8_t>(ub::eac_selector(a, T));
+  }
+}
+// ETC1 wire bits ms | ls << 1 of n (luminance, 3 thresholds) cases.
+extern "C" void etc1_selectors_host(const int* lum, const int* th, int n, uint8_t* out) {
+  for (int k = 0; k < n; ++k) {
+    const int32_t t[3] = {th[3 * k], th[3 * k + 1], th[3 * k + 2]};
+    uint32_t ms, ls;
+    ub::etc1_selector(lum[k], t, ms, ls);
+    out[k] = static_cast<uint8_t>(ms | (ls << 1));
+  }
+}
+// subblock_average(ssum, limit) of ssum = 0..n-1.
+extern "C" void subblock_averages_host(int limit, int n, int* out) {
+  for (int ssum = 0; ssum < n; ++ssum) out[ssum] = ub::subblock_average(ssum, limit);
+}
+// apply_bias of v = 0..limit for one (bias, subblock, channel).
+extern "C" void apply_bias_host(int bias, int subblock, int channel, int limit, int* out) {
+  const uint32_t field = (ub::ETC_BIAS_PACKED[bias] >> (2 * (3 * subblock + channel))) & 3u;
+  for (int v = 0; v <= limit; ++v) out[v] = ub::apply_bias(v, static_cast<int32_t>(field), limit);
+}
 """
 
-TARGETS = {"bc7": (0, 16, bc7), "astc": (1, 16, astc), "rgba": (2, 64, rgba)}
+TARGET_IDS = {"bc7": 0, "astc": 1, "rgba": 2, "etc1": 3, "etc2": 4}
 
 
 @pytest.fixture(scope="module")
@@ -86,6 +123,12 @@ def host_lib(tmp_path_factory):
                                ctypes.c_void_p, ctypes.c_void_p]
     lib.fl_div255_host.restype = ctypes.c_float
     lib.fl_div255_host.argtypes = [ctypes.c_int]
+    i, p = ctypes.c_int, ctypes.c_void_p
+    for name, args in (("eac_selectors_host", [i, i, p]), ("etc1_selectors_host", [p, p, i, p]),
+                       ("subblock_averages_host", [i, i, p]), ("apply_bias_host", [i, i, i, i, p])):
+        fn = getattr(lib, name)
+        fn.restype = None
+        fn.argtypes = args
     return lib
 
 
@@ -100,15 +143,15 @@ def _mode_blocks(golden, mode, n_random):
 
 
 def _check(host_lib, target, mode, blocks):
-    tid, out_bytes, plain = TARGETS[target]
+    out_bytes = kernels.OUT_BYTES[target]
     out = np.zeros((len(blocks), out_bytes), np.uint8)
     err = np.zeros(len(blocks), np.uint8)
-    host_lib.uastc_host(tid, mode, blocks.ctypes.data, len(blocks), out.ctypes.data, err.ctypes.data)
+    host_lib.uastc_host(TARGET_IDS[target], mode, blocks.ctypes.data, len(blocks), out.ctypes.data, err.ctypes.data)
 
     t = torch.from_numpy(blocks)
     p_out = torch.zeros(len(blocks), out_bytes, dtype=torch.uint8)
     p_err = torch.zeros(len(blocks), dtype=torch.bool)
-    plain.transcode_rows(mode, t, None, p_out, p_err)
+    kernels.PLAIN[target](mode, t, None, p_out, p_err)
     bad = np.nonzero(np.any(out != p_out.numpy(), axis=1) | (err.astype(bool) != p_err.numpy()))[0]
     assert bad.size == 0, (
         f"{target} mode {mode}: {bad.size} blocks differ; first {blocks[bad[0]].tolist()}\n"
@@ -128,10 +171,51 @@ def test_host_build_astc_rgba_match_plain(host_lib, golden, target, mode):
     _check(host_lib, target, mode, _mode_blocks(golden, mode, 2048))
 
 
+@pytest.mark.parametrize("target", ["etc1", "etc2"])
+@pytest.mark.parametrize("mode", range(19))
+def test_host_build_etc_match_plain(host_lib, golden, target, mode):
+    _check(host_lib, target, mode, _mode_blocks(golden, mode, 2048))
+
+
 def test_host_fl_div255_exhaustive(host_lib):
     got = np.array([host_lib.fl_div255_host(x) for x in range(256)], np.float32)
     expect = (np.arange(256, dtype=np.float32) / np.float32(255.0)).astype(np.float32)
     np.testing.assert_array_equal(got.view(np.uint32), expect.view(np.uint32))
+
+
+def test_host_eac_selector_exhaustive(host_lib):
+    # the C++ folded rank search against min_by_key over every table,
+    # multiplier, centre and alpha
+    out = np.zeros((256, 256), np.uint8)
+    for tbl in range(16):
+        for mult in range(16):
+            host_lib.eac_selectors_host(tbl, mult, out.ctypes.data)
+            np.testing.assert_array_equal(out, eac_reference_selectors(tbl, mult), err_msg=f"table {tbl} mult {mult}")
+
+
+def test_host_etc1_selector_forms(host_lib):
+    lum, th, expected = etc1_selector_cases()
+    out = np.zeros(len(lum), np.uint8)
+    host_lib.etc1_selectors_host(lum.ctypes.data, th.ctypes.data, len(lum), out.ctypes.data)
+    np.testing.assert_array_equal(out, expected)
+
+
+@pytest.mark.parametrize("limit", [15, 31])
+def test_host_subblock_average_exhaustive(host_lib, limit):
+    out = np.zeros(2041, np.int32)
+    host_lib.subblock_averages_host(limit, 2041, out.ctypes.data)
+    np.testing.assert_array_equal(out, (np.arange(2041) * limit + 1020) // 2040)
+
+
+@pytest.mark.parametrize("limit", [15, 31])
+def test_host_bias_rule_exhaustive(host_lib, limit):
+    out = np.zeros(limit + 1, np.int32)
+    for bias in range(32):
+        for sb in range(2):
+            for c in range(3):
+                host_lib.apply_bias_host(bias, sb, c, limit, out.ctypes.data)
+                np.testing.assert_array_equal(out, bias_reference(bias, limit, sb, c),
+                                              err_msg=f"bias {bias} subblock {sb} channel {c}")
 
 
 PTXAS_LOG = """\
@@ -148,6 +232,14 @@ ptxas info    : Compiling entry function '_ZN2ub12uastc_kernelIN12_GLOBAL__N_14R
 ptxas info    : Function properties for _ZN2ub12uastc_kernelIN12_GLOBAL__N_14RgbaILi9EEEEEvPK5uint4PKxiPS5_Ph
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 64 registers, used 0 barriers, 388 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN2ub12uastc_kernelIN12_GLOBAL__N_14Etc1ILi11EEEEEvPK5uint4PKxiPvPh' for 'sm_90a'
+ptxas info    : Function properties for _ZN2ub12uastc_kernelIN12_GLOBAL__N_14Etc1ILi11EEEEEvPK5uint4PKxiPvPh
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 56 registers, used 0 barriers, 388 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN2ub12uastc_kernelIN12_GLOBAL__N_14Etc2ILi15EEEEEvPK5uint4PKxiPvPh' for 'sm_90a'
+ptxas info    : Function properties for _ZN2ub12uastc_kernelIN12_GLOBAL__N_14Etc2ILi15EEEEEvPK5uint4PKxiPvPh
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 72 registers, used 0 barriers, 388 bytes cmem[0]
 """
 
 
@@ -156,4 +248,6 @@ def test_ptxas_report_parser():
         ("bc7", 2): {"registers": 48, "stack": 0, "spill_stores": 0, "spill_loads": 0},
         ("astc", 17): {"registers": 40, "stack": 8, "spill_stores": 4, "spill_loads": 4},
         ("rgba", 9): {"registers": 64, "stack": 0, "spill_stores": 0, "spill_loads": 0},
+        ("etc1", 11): {"registers": 56, "stack": 0, "spill_stores": 0, "spill_loads": 0},
+        ("etc2", 15): {"registers": 72, "stack": 0, "spill_stores": 0, "spill_loads": 0},
     }

@@ -1,6 +1,7 @@
 """PyTorch port: the kernel wrappers of `ops/kernels.py` (argument checks,
-the in-place index contract, counters) and the native build helper of
-`ops/build.py`, on the CPU, where a wrapper runs its plain version."""
+the in-place index contract, counters, the output alignment rule) and the
+native build helper of `ops/build.py`, on the CPU, where a wrapper runs its
+plain version."""
 
 import shutil
 
@@ -70,6 +71,40 @@ def test_wrapper_rejects_bad_arguments(golden, case):
         err = err.to(torch.uint8)
     with pytest.raises(ValueError):
         kernels.mode_kernel("rgba", 3)(blocks, index, out, err)
+
+
+@pytest.mark.parametrize("target", TARGETS)
+def test_output_rows_have_out_bytes(golden, target):
+    # the wrapper allocates [N, OUT_BYTES] rows (8 for ETC1) and refuses an
+    # out tensor of another row width
+    blocks, _, _ = _args(golden, target)
+    out, err = kernels.mode_kernel(target, 3)(blocks)
+    assert out.dtype == torch.uint8 and tuple(out.shape) == (blocks.shape[0], kernels.OUT_BYTES[target])
+    np.testing.assert_array_equal(out.numpy(), plain(target, 3, blocks.numpy())[0])
+    wrong = torch.zeros(blocks.shape[0], 24, dtype=torch.uint8)
+    with pytest.raises(ValueError, match=f"uint8 \\[N, {kernels.OUT_BYTES[target]}\\]"):
+        kernels.mode_kernel(target, 3)(blocks, None, wrong, err)
+
+
+@pytest.mark.parametrize("target", TARGETS)
+@pytest.mark.parametrize("offset", [0, 4, 8])
+def test_alignment_rule(target, offset):
+    # blocks 16-byte aligned; out aligned to min(16, its row bytes): an ETC1
+    # row may start 8 bytes into a 16-byte line, no other target's may
+    blocks = torch.zeros(4, 16, dtype=torch.uint8)
+    width = kernels.OUT_BYTES[target]
+    base = torch.zeros(5 * width + 16, dtype=torch.uint8)
+    lead = (-base.data_ptr()) % 16 + offset
+    out = base[lead : lead + 4 * width].view(4, width)
+    if offset % min(16, width):
+        with pytest.raises(ValueError, match="out must be"):
+            kernels.check_alignment(blocks, out)
+    else:
+        kernels.check_alignment(blocks, out)
+    shifted = torch.zeros(5 * 16 + 16, dtype=torch.uint8)
+    lead = (-shifted.data_ptr()) % 16 + 8
+    with pytest.raises(ValueError, match="blocks must be 16-byte aligned"):
+        kernels.check_alignment(shifted[lead : lead + 64].view(4, 16), out)
 
 
 @pytest.mark.skipif(shutil.which("g++") is None, reason="g++ is not installed; host_library builds with it")

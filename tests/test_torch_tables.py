@@ -71,8 +71,11 @@ CASES.update({
               lambda: [astuple(m) + (m.field_offsets,) for m in jt.MODES]),
     "BC7_MODES": (lambda: [astuple(m) for m in tt.BC7_MODES], lambda: [astuple(m) for m in jt.BC7_MODES]),
     "BISE_RANGES": (lambda: [astuple(r) for r in tt.BISE_RANGES], lambda: [astuple(r) for r in jt.BISE_RANGES]),
-    "scalars": (lambda: (tt.LA, tt.RGB, tt.RGBA, tt.MODE8_RGBA_OFFSET, tt.UASTC_BLOCK_SIZE),
-                lambda: (jt.LA, jt.RGB, jt.RGBA, jt.MODE8_RGBA_OFFSET, jt.UASTC_BLOCK_SIZE)),
+    "scalars": (lambda: (tt.LA, tt.RGB, tt.RGBA, tt.MODE8_RGBA_OFFSET, tt.MODE8_ETC1_FLAGS_OFFSET,
+                         tt.UASTC_BLOCK_SIZE),
+                lambda: (jt.LA, jt.RGB, jt.RGBA, jt.MODE8_RGBA_OFFSET, jt.MODE8_ETC1_FLAGS_OFFSET,
+                         jt.UASTC_BLOCK_SIZE)),
+    "etc_bias_deltas": (tt.etc_bias_deltas, jt.etc_bias_deltas),
     "bc7_mode_5_optimal_packed": (tt.bc7_mode_5_optimal_packed, jt.bc7_mode_5_optimal_packed),
     "bc7_mode_6_optimal_packed": (tt.bc7_mode_6_optimal_packed, jt.bc7_mode_6_optimal_packed),
 })
@@ -151,6 +154,36 @@ def test_astc_tables_match_reference():
         mode13 = int(jt.np_tables()["UASTC_TO_ASTC_BLOCK_MODE_13"][cfg.id])
         traits = header.split(f"struct Mode<{cfg.id}> {{")[1].split("};")[0]
         assert f"static constexpr int astc_block_mode = {mode13};" in traits
+
+
+def test_etc_packed_tables_match_reference():
+    # the packed forms the CUDA header and the plain version read, unpacked
+    # and held against the JAX package's arrays and its own packing
+    import jax.numpy as jnp
+
+    from basisu_rs_tpu.ops.etc import _packed_bias_deltas
+
+    arrays, _ = kernel_tables()
+    ref = jt.np_tables()
+    w = arrays["ETC1_MOD_PACKED"].astype(np.int64)
+    small, big = w & 255, w >> 8
+    np.testing.assert_array_equal(np.stack([-big, -small, small, big], 1), ref["ETC1_MODIFIERS"])
+    np.testing.assert_array_equal(arrays["ETC_BIAS_PACKED"].astype(np.int64),
+                                  np.asarray(_packed_bias_deltas(jnp.arange(32))))
+    bias = arrays["ETC_BIAS_PACKED"].astype(np.int64)
+    for sb in range(2):
+        for c in range(3):
+            np.testing.assert_array_equal(((bias >> (2 * (3 * sb + c))) & 3) - 2, ref["ETC_BIAS_DELTAS"][:, sb, c])
+    eac = arrays["EAC_MOD_PACKED"].astype(np.int64).reshape(16, 2)
+    mods = np.stack([(eac[:, j >> 2] >> (8 * (j & 3))) & 255 for j in range(8)], 1) - 15
+    np.testing.assert_array_equal(mods, ref["ETC2_ALPHA_MODIFIERS"])
+    assert arrays["EAC_FRACTION_BITS"].dtype == np.uint32
+    np.testing.assert_array_equal(arrays["EAC_FRACTION_BITS"], ref["ETC2_ALPHA_FRACTION"].view(np.uint32))
+    header = gen_header.HEADER.read_text()
+    assert "constexpr int MODE8_RGBA_OFFSET = 5, MODE8_ETC1_FLAGS_OFFSET = 37;" in header
+    for cfg in jt.MODES:
+        traits = header.split(f"struct Mode<{cfg.id}> {{")[1].split("};")[0]
+        assert f"static constexpr int ofs_trans_flags = {cfg.field_offsets['trans_flags']};" in traits
 
 
 def test_device_tables_equal_kernel_tables():
