@@ -1,14 +1,18 @@
 """PyTorch + CUDA port of the Basis Universal batch transcoder.
 
 The JAX package `basisu_rs_tpu` is the reference this port is held against.
-The port carries every UASTC path, to BC7, ASTC, RGBA, ETC1 and ETC2, for
-loose blocks and for UASTC .basis files: a mode partition on the device and
-one hand-written sm_90a CUDA kernel launch per UASTC mode and target
-(`csrc/uastc_{bc7,astc,rgba,etc1,etc2}.cu`), with a plain PyTorch version of
-each kernel (`ops/{bc7,astc,rgba,etc}.py`) for tensors on the CPU.  ETC1S
-files are not ported yet.  Every entry point
-runs on the card unless called with `device="cpu"`.  This package imports
-torch and numpy, never JAX, and nothing of the JAX package.
+The port carries both source formats of the reference:
+  - UASTC, to BC7, ASTC, RGBA, ETC1 and ETC2, for loose blocks and for
+    .basis files: a mode partition on the device and one hand-written
+    sm_90a CUDA kernel launch per UASTC mode and target
+    (`csrc/uastc_{bc7,astc,rgba,etc1,etc2}.cu`);
+  - ETC1S/BasisLZ .basis files, to RGBA and ETC1: the host entropy
+    front-end (C++, `container/etc1s_frontend.cpp`) and one CUDA kernel
+    launch per file (`csrc/etc1s.cu`).
+Each kernel has a plain PyTorch version (`ops/{bc7,astc,rgba,etc,etc1s}.py`)
+for tensors on the CPU.  Every entry point runs on the card unless called
+with `device="cpu"`.  This package imports torch and numpy, never JAX, and
+nothing of the JAX package.
 """
 
 from .api import (
@@ -21,11 +25,22 @@ from .api import (
     transcode_uastc_blocks,
     unpack_uastc_block_to_rgba,
 )
-from .container import read_to_astc, read_to_bc7, read_to_etc1, read_to_etc2, read_to_rgba, read_to_uastc
+from .container import (
+    Header,
+    SliceDesc,
+    read_to_astc,
+    read_to_bc7,
+    read_to_etc1,
+    read_to_etc2,
+    read_to_rgba,
+    read_to_uastc,
+)
 
 __all__ = [
     "BasisError",
+    "Header",
     "Image",
+    "SliceDesc",
     "read_to_astc",
     "read_to_bc7",
     "read_to_etc1",

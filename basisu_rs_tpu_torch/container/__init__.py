@@ -1,8 +1,9 @@
-"""The .basis container and the UASTC file path of the port."""
+"""The .basis container and the file paths of the port (UASTC and ETC1S)."""
 
 from .basis import (
     Header,
     SliceDesc,
+    make_etc1s_decoder,
     read_header,
     read_slice_descs,
     read_to_astc,
@@ -16,6 +17,7 @@ from .basis import (
 __all__ = [
     "Header",
     "SliceDesc",
+    "make_etc1s_decoder",
     "read_header",
     "read_slice_descs",
     "read_to_astc",

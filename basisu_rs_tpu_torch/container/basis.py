@@ -1,23 +1,25 @@
-""".basis container parsing and the UASTC file path.
+""".basis container parsing and the file paths of both source formats.
 
-Port of the UASTC half of `basisu_rs_tpu/container/basis.py`, mirroring the
-reference container layer (src/basis.rs): signature + 77-byte header with
-u24 fields, CRC-16/GENIBUS header and data checksums, 23-byte slice
-descriptors, and `read_to_{rgba,astc,bc7,etc1,etc2,uastc}` for UASTC
-files.
+Port of `basisu_rs_tpu/container/basis.py`, mirroring the reference
+container layer (src/basis.rs): signature + 77-byte header with u24
+fields, CRC-16/GENIBUS header and data checksums, 23-byte slice
+descriptors, and `read_to_{rgba,astc,bc7,etc1,etc2,uastc}`.
 
-Device design: the host parses and checks the file (header, both CRCs,
-slice table), then copies the UASTC payload of all slices to the device
-once and runs one `transcode_blocks` over the slices concatenated in slice
-order, so a file pays one partition and at most 19 launches, not that per
-slice.  The first failing block in that order is the reference's abort
-point.  RGBA images are reordered from block rows ([by, bx, y, x]) to
-raster rows on the device.  Images keep the JAX package's strides.  Every
-`read_to_*` runs on `device="cuda"` unless asked for another device.
+Device design.  The host parses and checks the file (header, both CRCs,
+slice table).  A UASTC file's payload of all slices is copied to the device
+once and goes through one `transcode_blocks` over the slices concatenated
+in slice order, so a file pays one partition and at most 19 launches, not
+that per slice; the first failing block in that order is the reference's
+abort point.  An ETC1S file's slices go through the host front-end (C++,
+`etc1s_frontend.py`) one by one, in the reference's order, into one host
+array of uint16 index streams; that array is copied to the device once and
+decoded by one kernel launch for the whole file (K6, K8 when the file has
+alpha slices, K9 for ETC1), since the codebooks are the file's.  RGBA
+images are reordered from block rows ([by, bx, y, x]) to raster rows on the
+device.  Images keep the JAX package's strides.  Every `read_to_*` runs on
+`device="cuda"` unless asked for another device.
 
-Not ported yet: ETC1S files (ROADMAP.md Queue 1 item 9: `read_to_rgba` and
-`read_to_etc1` of one raise NotImplementedError, the other readers refuse
-the format as the JAX package does) and `mesh=` (item 11).
+Not ported yet: `mesh=` (ROADMAP.md Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -32,16 +34,36 @@ import torch
 
 from ..api import BasisError, Image, resolve_device
 from ..ops.dispatch import INVALID_MODE, block_modes, transcode_blocks
-from ..ops.kernels import OUT_BYTES
+from ..ops.etc1s import run_etc1s_etc1, run_etc1s_rgba
 from ..tables import UASTC_BLOCK_SIZE
 from .crc import crc16
+from .etc1s_frontend import Etc1sDecoder
 
 SIG = 0x4273
+
+
+class TextureType(IntEnum):
+    Type2D = 0
+    Type2DArray = 1
+    CubemapArray = 2
+    VideoFrames = 3
+    Volume = 4
 
 
 class TexFormat(IntEnum):
     ETC1S = 0
     UASTC4x4 = 1
+
+
+class HeaderFlags(IntEnum):
+    ETC1S = 1
+    YFlipped = 2
+    HasAlphaSlices = 4
+
+
+class SliceDescFlags(IntEnum):
+    HasAlpha = 1
+    FrameIsIFrame = 2
 
 
 def _u24(b: bytes, ofs: int) -> int:
@@ -80,6 +102,14 @@ class Header:
     slice_desc_file_ofs: int
     extended_file_ofs: int
     extended_file_size: int
+
+    @property
+    def has_alpha(self) -> bool:
+        return bool(self.flags & HeaderFlags.HasAlphaSlices)
+
+    @property
+    def has_y_flipped(self) -> bool:
+        return bool(self.flags & HeaderFlags.YFlipped)
 
     def texture_format(self) -> TexFormat:
         try:
@@ -130,6 +160,15 @@ class SliceDesc:
     file_ofs: int
     file_size: int
     slice_data_crc16: int
+
+    @property
+    def has_alpha(self) -> bool:
+        return bool(self.flags & SliceDescFlags.HasAlpha)
+
+    def data(self, buf) -> memoryview:
+        """The slice's payload bytes, a view of buf (clipped at its end as
+        Python slicing clips)."""
+        return _section(buf, self.file_ofs, self.file_size)
 
     @classmethod
     def from_file_bytes(cls, b: bytes) -> "SliceDesc":
@@ -236,26 +275,21 @@ def _check_errs(err: torch.Tensor, blocks: torch.Tensor) -> None:
         raise BasisError("block pattern is not valid")
 
 
-def _transcode_file(buf: bytes, target: str, device):
-    """(header, slices, out) of a UASTC file: out is transcode_blocks'
-    result over every slice in slice order, on `device`, and slices holds
-    (desc, first row, end row) of each slice's rows in out.  header is None
-    for an ETC1S file, which the caller handles."""
-    device = resolve_device(device)
-    header, descs = _validated(buf)
-    if header.texture_format() != TexFormat.UASTC4x4:
-        return None, None, None
+def _uastc_file(buf: bytes, descs: list[SliceDesc], target: str, device):
+    """(slices, out) of a UASTC file: out is transcode_blocks' result over
+    every slice in slice order, on `device`, and slices holds (desc, first
+    row, end row) of each slice's rows in out."""
     blocks, counts = uastc_payload(buf, descs, device)
     out, err = transcode_blocks(blocks, target)
     _check_errs(err, blocks)
     if len(counts) < len(descs):
         raise BasisError("data length is not divisible by UASTC block size (16)")
     ends = np.cumsum(counts).tolist()
-    return header, [(d, e - n, e) for d, n, e in zip(descs, counts, ends)], out
+    return [(d, e - n, e) for d, n, e in zip(descs, counts, ends)], out
 
 
 def rgba_images(out: torch.Tensor, slices) -> list[Image]:
-    """Per-slice RGBA byte images from transcode_blocks' "rgba" result over
+    """Per-slice RGBA byte images from [N,16] packed RGBA texel words over
     the file's blocks: [by, bx, y, x] texel rows -> raster rows, on the
     device."""
     texels = out.view(torch.uint8)  # [N, 64]: 4 rows of 4 texels of 4 bytes
@@ -267,57 +301,166 @@ def rgba_images(out: torch.Tensor, slices) -> list[Image]:
     return images
 
 
-_ETC1S_NOT_PORTED = "ETC1S files are not ported to PyTorch yet (ROADMAP.md Queue 1 item 9)"
-
-
-def read_to_rgba(buf: bytes, device="cuda") -> tuple[Header, list[Image]]:
-    """-> (Header, [Image]) of RGBA bytes, one image per slice (reference:
-    basis.rs:8-90)."""
-    header, slices, out = _transcode_file(buf, "rgba", device)
-    if header is None:
-        raise NotImplementedError(_ETC1S_NOT_PORTED)
-    return header, rgba_images(out, slices)
-
-
-def _read_to_blocks(buf: bytes, target: str, device, etc1s_error: Exception) -> list[Image]:
-    """Shared UASTC path of read_to_{astc,bc7,etc1,etc2} (basis.rs:92-260):
-    one image of OUT_BYTES[target]-byte blocks per slice.  An ETC1S file
-    raises etc1s_error."""
-    header, slices, out = _transcode_file(buf, target, device)
-    if header is None:
-        raise etc1s_error
-    size = OUT_BYTES[target]
+def _block_images(out: torch.Tensor, slices) -> list[Image]:
+    """One image of out's block rows per slice, a row of blocks per stride."""
+    rows = out.view(torch.uint8)
+    size = rows.shape[1]
     return [
-        Image(w=desc.orig_width, h=desc.orig_height, stride=size * desc.num_blocks_x, data=out[a:b].reshape(-1))
+        Image(w=desc.orig_width, h=desc.orig_height, stride=size * desc.num_blocks_x, data=rows[a:b].reshape(-1))
         for desc, a, b in slices
     ]
 
 
+# ---------------------------------------------------------------------------
+# ETC1S files
+# ---------------------------------------------------------------------------
+
+
+def _section(buf, ofs: int, size: int) -> memoryview:
+    """buf[ofs : ofs + size] without a copy, clipped as Python slicing clips."""
+    return memoryview(buf)[ofs : ofs + size]
+
+
+def make_etc1s_decoder(header: Header, buf, *, endpoint_count_quirk: bool = False, native: bool = True) -> Etc1sDecoder:
+    """The BasisLZ decoder of a file, from its header-addressed byte ranges
+    (reference: basis.rs:262-298).
+
+    The reference passes `total_selectors` as the endpoint count
+    (basis.rs:290, a latent quirk); by default this uses `total_endpoints`,
+    which files from the official encoder need.  endpoint_count_quirk=True
+    gives the reference's behaviour on files where the counts differ
+    (COMPAT.md item 1).  native=False runs the plain Python front-end."""
+    n_endpoints = header.total_selectors if endpoint_count_quirk else header.total_endpoints
+    return Etc1sDecoder(
+        n_endpoints,
+        header.total_selectors,
+        _section(buf, header.endpoint_cb_file_ofs, header.endpoint_cb_file_size),
+        _section(buf, header.selector_cb_file_ofs, header.selector_cb_file_size),
+        _section(buf, header.tables_file_ofs, header.tables_file_size),
+        is_video=header.tex_type == TextureType.VideoFrames,
+        native=native,
+    )
+
+
+def etc1s_index_streams(buf, dec: Etc1sDecoder, descs: list[SliceDesc], pairs: bool):
+    """Run the front-end over the file's slices in the reference's order,
+    into one host array of index streams.
+
+    pairs=True (read_to_rgba of a file with alpha slices): descs go in
+    (RGB, alpha) pairs, each alpha slice decoded before its RGB slice, and
+    the array has 4 rows (endpoint, selector, alpha endpoint, alpha
+    selector) over the RGB slices' blocks; otherwise 2 rows over every
+    slice's blocks.  Returns (uint16 [rows, N], slices: (desc, first, end)
+    of each image's blocks)."""
+    step = 2 if pairs else 1
+    image_descs = descs[::step]
+    ends = np.cumsum([0] + [d.num_blocks_x * d.num_blocks_y for d in image_descs]).tolist()
+    slices = list(zip(image_descs, ends, ends[1:]))
+    host = np.empty((2 * step, ends[-1]), np.uint16)
+    for k, (desc, a, b) in enumerate(slices):
+        if pairs:
+            alpha_desc = descs[2 * k + 1]
+            if not alpha_desc.has_alpha:
+                raise BasisError("Expected slice with alpha")
+            if (alpha_desc.num_blocks_x, alpha_desc.num_blocks_y) != (desc.num_blocks_x, desc.num_blocks_y):
+                raise BasisError("RGB slice and Alpha slice have different dimensions")
+            dec.decode_slice(alpha_desc.num_blocks_x, alpha_desc.num_blocks_y, alpha_desc.data(buf),
+                             out=(host[2, a:b], host[3, a:b]))
+        dec.decode_slice(desc.num_blocks_x, desc.num_blocks_y, desc.data(buf), out=(host[0, a:b], host[1, a:b]))
+    return host, slices
+
+
+def _etc1s_indices(buf, header: Header, descs: list[SliceDesc], pairs: bool, device):
+    """(decoder, index streams on `device` in one copy, slices) of an ETC1S
+    file (etc1s_index_streams)."""
+    if header.has_alpha and header.total_slices % 2 != 0:
+        raise BasisError("File has alpha, but slice count is odd")
+    dec = make_etc1s_decoder(header, buf)
+    host, slices = etc1s_index_streams(buf, dec, descs, pairs)
+    return dec, torch.from_numpy(host).to(device), slices
+
+
+def _etc1s_rgba(buf, header: Header, descs: list[SliceDesc], device):
+    """(slices, texels) of an ETC1S file: one K6 launch, or one K8 launch
+    when the file has alpha slices (reference: basis.rs:26-53)."""
+    dec, idx, slices = _etc1s_indices(buf, header, descs, header.has_alpha, device)
+    alpha_pass = (idx[2], idx[3]) if header.has_alpha else None
+    # the front-end checked every index against its codebook
+    out = run_etc1s_rgba(dec.endpoints, dec.selectors, idx[0], idx[1], alpha_pass, device, check_index=False)
+    return slices, out
+
+
+def _etc1s_etc1(buf, header: Header, descs: list[SliceDesc], device):
+    """(slices, blocks) of an ETC1S file: one K9 launch over every slice."""
+    dec, idx, slices = _etc1s_indices(buf, header, descs, False, device)
+    return slices, run_etc1s_etc1(dec.endpoints, dec.selectors, idx[0], idx[1], device, check_index=False)
+
+
+# ---------------------------------------------------------------------------
+# readers
+# ---------------------------------------------------------------------------
+
+
+def _open(buf: bytes, device):
+    """(device, header, slice descriptors, texture format) of a checked file."""
+    device = resolve_device(device)
+    header, descs = _validated(buf)
+    return device, header, descs, header.texture_format()
+
+
+def read_to_rgba(buf: bytes, device="cuda") -> tuple[Header, list[Image]]:
+    """-> (Header, [Image]) of RGBA bytes, one image per slice, or per
+    (RGB, alpha) slice pair of an ETC1S file with alpha (reference:
+    basis.rs:8-90).  Rows of an image are 4 * num_blocks_x texels apart
+    (COMPAT.md item 2)."""
+    device, header, descs, fmt = _open(buf, device)
+    if fmt == TexFormat.ETC1S:
+        slices, out = _etc1s_rgba(buf, header, descs, device)
+    else:
+        slices, out = _uastc_file(buf, descs, "rgba", device)
+    return header, rgba_images(out, slices)
+
+
+def _read_to_blocks(buf: bytes, target: str, device) -> list[Image]:
+    """Shared UASTC path of read_to_{astc,bc7,etc2} (basis.rs:92-260): one
+    image of `target` blocks per slice.  An ETC1S file is
+    refused (COMPAT.md item 3)."""
+    device, header, descs, fmt = _open(buf, device)
+    if fmt != TexFormat.UASTC4x4:
+        raise BasisError("unsupported texture format")
+    slices, out = _uastc_file(buf, descs, target, device)
+    return _block_images(out, slices)
+
+
 def read_to_astc(buf: bytes, device="cuda") -> list[Image]:
-    return _read_to_blocks(buf, "astc", device, BasisError("unsupported texture format"))
+    return _read_to_blocks(buf, "astc", device)
 
 
 def read_to_bc7(buf: bytes, device="cuda") -> list[Image]:
-    return _read_to_blocks(buf, "bc7", device, BasisError("unsupported texture format"))
+    return _read_to_blocks(buf, "bc7", device)
 
 
 def read_to_etc1(buf: bytes, device="cuda") -> list[Image]:
-    """8-byte ETC1 blocks of a UASTC file."""
-    return _read_to_blocks(buf, "etc1", device, NotImplementedError(_ETC1S_NOT_PORTED))
+    """8-byte ETC1 blocks, one image per slice, of a UASTC or an ETC1S file."""
+    device, header, descs, fmt = _open(buf, device)
+    if fmt == TexFormat.ETC1S:
+        slices, out = _etc1s_etc1(buf, header, descs, device)
+    else:
+        slices, out = _uastc_file(buf, descs, "etc1", device)
+    return _block_images(out, slices)
 
 
 def read_to_etc2(buf: bytes, device="cuda") -> list[Image]:
     """16-byte ETC2 RGBA blocks (EAC alpha, then ETC1) of a UASTC file; an
     ETC1S file is refused, as in the reference."""
-    return _read_to_blocks(buf, "etc2", device, BasisError("unsupported texture format"))
+    return _read_to_blocks(buf, "etc2", device)
 
 
 def read_to_uastc(buf: bytes, device="cuda") -> list[Image]:
     """Raw UASTC block passthrough (reference: basis.rs:175-202), the
     payload of each slice copied to `device`."""
-    device = resolve_device(device)
-    header, descs = _validated(buf)
-    if header.texture_format() != TexFormat.UASTC4x4:
+    device, header, descs, fmt = _open(buf, device)
+    if fmt != TexFormat.UASTC4x4:
         raise BasisError("unsupported texture format")
     return [
         Image(
@@ -328,4 +471,3 @@ def read_to_uastc(buf: bytes, device="cuda") -> list[Image]:
         )
         for desc in descs
     ]
-

@@ -11,7 +11,7 @@ each `.cu` to an object in its own nvcc process, all started together, and
 one nvcc then links them.  The build writes nvcc's output, including the
 `-Xptxas -v` register and spill report of every kernel, beside the library
 (`build_log()`, `ptxas_report()`).  `host_library()` builds one host C++
-source with g++ (the container's CRC-16).
+source with g++ (the container's CRC-16, the ETC1S front-end).
 
 Nothing here runs at import time: `load()` is called by the kernel wrapper
 on the first CUDA launch.  There is no fallback: a missing compiler or a
@@ -50,6 +50,9 @@ LAUNCH = {
     "etc1": "uastc_etc1_launch",
     "etc2": "uastc_etc2_launch",
 }
+# C launch entry point of the ETC1S kernels K6-K9 (csrc/etc1s.cu)
+ETC1S_LAUNCH = "etc1s_launch"
+ETC1S_KINDS = ("rgba", "alpha", "rgba_alpha", "etc1")  # the kernels' KIND 0..3
 
 
 def nvcc_path() -> str:
@@ -165,6 +168,22 @@ def load() -> ctypes.CDLL:
             ctypes.c_void_p,  # err
             ctypes.c_void_p,  # stream
         ]
+    fn = getattr(lib, ETC1S_LAUNCH)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_int,  # kind
+        ctypes.c_void_p,  # endpoint codebook words
+        ctypes.c_int,  # its length
+        ctypes.c_void_p,  # selector (or wire) codebook words
+        ctypes.c_int,  # its length
+        ctypes.c_void_p,  # endpoint index stream
+        ctypes.c_void_p,  # selector index stream
+        ctypes.c_void_p,  # alpha slice's endpoint index stream (or None)
+        ctypes.c_void_p,  # alpha slice's selector index stream (or None)
+        ctypes.c_int,  # n
+        ctypes.c_void_p,  # out
+        ctypes.c_void_p,  # stream
+    ]
     return lib
 
 
@@ -176,19 +195,30 @@ def build_log() -> str:
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
-_KERNEL = re.compile(r"\d(Bc7|Astc|Rgba|Etc1|Etc2)ILi(\d+)E")
+_KERNEL = re.compile(r"uastc_kernel.*\d(Bc7|Astc|Rgba|Etc1|Etc2)ILi(\d+)E")
+_ETC1S_KERNEL = re.compile(r"etc1s_kernelILi(\d)E")
+
+
+def _kernel_key(name: str):
+    """(target, mode) of a uastc_kernel<Op<M>>, ("etc1s", kind) of an
+    etc1s_kernel<KIND>, None for any other mangled name."""
+    k = _KERNEL.search(name)
+    if k:
+        return k.group(1).lower(), int(k.group(2))
+    k = _ETC1S_KERNEL.search(name)
+    return ("etc1s", ETC1S_KINDS[int(k.group(1))]) if k else None
 
 
 def parse_ptxas(text: str) -> dict:
-    """{(target, mode): {"registers", "stack", "spill_stores", "spill_loads"}}
-    from the `-Xptxas -v` lines of an nvcc log (kernels uastc_kernel<Op<M>>)."""
+    """{(target, mode) or ("etc1s", kind): {"registers", "stack",
+    "spill_stores", "spill_loads"}} from the `-Xptxas -v` lines of an nvcc
+    log (kernels uastc_kernel<Op<M>> and etc1s_kernel<KIND>)."""
     out: dict = {}
     cur = None
     for line in text.splitlines():
         m = _ENTRY.search(line)
         if m:
-            k = _KERNEL.search(m.group(1))
-            cur = (k.group(1).lower(), int(k.group(2))) if k else None
+            cur = _kernel_key(m.group(1))
             if cur is not None:
                 out[cur] = {}
             continue

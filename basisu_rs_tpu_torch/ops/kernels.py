@@ -36,15 +36,20 @@ PLAIN = {
 }
 
 
-def check_alignment(blocks, out) -> None:
-    """The kernels load 16-byte block rows and store each output row in the
-    widest vectors that fit it: blocks must be 16-byte aligned, out
-    min(16, out row bytes)-byte aligned."""
-    if blocks.data_ptr() % 16:
-        raise ValueError("blocks must be 16-byte aligned")
+def check_out_alignment(out) -> None:
+    """Every kernel (K1-K9) stores an output row in the widest vectors that
+    fit it: out must be min(16, out row bytes)-byte aligned."""
     align = min(16, out.shape[1])
     if out.data_ptr() % align:
         raise ValueError(f"out must be {align}-byte aligned")
+
+
+def check_alignment(blocks, out) -> None:
+    """The UASTC kernels load 16-byte block rows: blocks must be 16-byte
+    aligned, and out as check_out_alignment says."""
+    if blocks.data_ptr() % 16:
+        raise ValueError("blocks must be 16-byte aligned")
+    check_out_alignment(out)
 
 
 class ModeKernel:

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's UASTC paths (to BC7, ASTC, RGBA, ETC1 and ETC2,
-for blocks and for .basis files) on one CUDA card.
+"""Drive the PyTorch port's paths on one CUDA card: UASTC (to BC7, ASTC,
+RGBA, ETC1 and ETC2, for blocks and for .basis files) and ETC1S (to RGBA and
+ETC1, for index streams and for .basis files).
 
     python3 chip_smoke.py
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
   1. card facts (nvidia-smi name and power limit, torch and CUDA versions);
   2. nvcc build of csrc/*.cu for sm_90a (one nvcc per source, in parallel),
-     with seconds and the ptxas register/spill report of all 95 kernels
-     (K1 BC7, K2 ASTC, K3 RGBA, K4 ETC1, K5 ETC2, x 19 UASTC modes);
+     with seconds and the ptxas register/spill report of all 99 kernels
+     (K1 BC7, K2 ASTC, K3 RGBA, K4 ETC1, K5 ETC2, x 19 UASTC modes; K6-K9,
+     the four ETC1S kinds);
   3. per UASTC mode 0-18: the BC7 kernel against its plain PyTorch version
      on the card, on that mode's golden blocks plus 65,536 seeded random
      blocks of the mode (invalid pattern indices included), with and
@@ -39,7 +41,24 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
  11. as phase 7, for ETC1 and ETC2 (`transcode_uastc_block_to_etc1/etc2`);
  12. as phase 5, for ETC1 (128 MiB in, 64 MiB out) and ETC2 (128 MiB in,
      128 MiB out);
- 13. as phase 9, for `read_to_etc1` and `read_to_etc2` on the same file.
+ 13. as phase 9, for `read_to_etc1` and `read_to_etc2` on the same file;
+ 14. K6-K9 (ETC1S rgba, alpha, rgba_alpha, etc1) against their plain
+     versions on the card, bit-exact, on seeded codebooks of 2,048, 16,128
+     and 65,535 entries and of one entry, each over 65,536 blocks;
+ 15. the ETC1S block main path at full size: 2^23 device-resident blocks of
+     seeded uint16 index streams into codebooks of 2,048 entries, through
+     `run_etc1s_rgba` (K6), `run_etc1s_rgba` with an alpha pass (K8), K7's
+     wrapper alone and `run_etc1s_etc1` (K9), each bit-exact against its
+     plain version with one launch and no plain call; then CUDA-event
+     timings of the whole call, of the launch (as called, and device time
+     with the stream preloaded) and of the plain version;
+ 16. the ETC1S file path at full size, files written by the port's writer:
+     a texture array of 8 slices of 1024x1024 blocks and a file of 4 RGB +
+     alpha slice pairs of 1024x1024 blocks, each read by `read_to_rgba` (K6,
+     K8) and `read_to_etc1` (K9) image by image against the plain version
+     on the writer's index streams, with one launch per file, the time
+     split of one call, and a corrupt-CRC file and an odd-slice alpha file
+     that must raise the reference's messages.
 The last two lines before the final one are a JSON line of per-kernel
 results and the card's name and power limit; the final line is the
 `{"ok": true, "device": ...}` result.  Imports torch, numpy and
@@ -74,6 +93,10 @@ TARGETS = ("bc7", "astc", "rgba", "etc1", "etc2")
 OP_NAME = {"bc7": "Bc7", "astc": "Astc", "rgba": "Rgba", "etc1": "Etc1", "etc2": "Etc2"}
 REPLACES = "basisu_rs_tpu/ops/pallas_kernels.py:150"
 SLICES, SLICE_BLOCKS_X = 8, 1024  # 8 slices of 1024x1024 blocks = 2^23 blocks
+ETC1S_SIZES = (2048, 16128, 65535, 1)  # phase 14's codebook entries (E = S)
+ETC1S_BOOK = 2048  # E = S of phases 15 and 16 (bench.py:183)
+ETC1S_INDEX_BYTES = 2  # a uint16 index, read once by the launch
+ETC1S_REPLACES = "basisu_rs_tpu/ops/etc1s_pallas.py:230"
 
 
 def require(cond, msg: str) -> None:
@@ -140,6 +163,233 @@ def mode_blocks(rng, lut, golden_in, mode: int) -> np.ndarray:
     return np.ascontiguousarray(np.concatenate([gold, r]))
 
 
+def etc1s_codebooks(rng, e: int, s: int):
+    endpoints = np.zeros((e, 4), np.uint8)
+    endpoints[:, :3] = rng.integers(0, 32, (e, 3))
+    endpoints[:, 3] = rng.integers(0, 8, e)
+    return endpoints, rng.integers(0, 256, (s, 4)).astype(np.uint8)
+
+
+def etc1s_tables(etc1s, endpoints, selectors, kind: str, dev):
+    """The packed codebooks of `kind` on the card: endpoint words, and
+    selector words (wire words for "etc1")."""
+    words = etc1s.selector_wire_words(selectors) if kind == "etc1" else etc1s.pack_selectors(selectors)
+    return etc1s.codebook_tensor(etc1s.pack_endpoints(endpoints), dev), etc1s.codebook_tensor(words, dev)
+
+
+def etc1s_block_bytes(etc1s, kind: str) -> int:
+    """HBM bytes the function needs a block: its uint16 indices read once,
+    its output written once (the codebooks stay cached)."""
+    return ETC1S_INDEX_BYTES * len(etc1s.INDEX_BOOKS[kind]) + etc1s.OUT_BYTES[kind]
+
+
+def etc1s_kernel_vs_plain(etc1s, dev, card: str) -> dict:
+    """Phase 14: K6-K9 against their plain versions on the card, at every
+    codebook size of ETC1S_SIZES; returns {kind: max abs byte difference}."""
+    rng = np.random.default_rng(SEED)
+    worst = {k: 0 for k in etc1s.KINDS}
+    for e in ETC1S_SIZES:
+        endpoints, selectors = etc1s_codebooks(rng, e, e)
+        idx = [torch.from_numpy(rng.integers(0, e, N_RANDOM).astype(np.uint16)).to(dev) for _ in range(4)]
+        for kind in etc1s.KINDS:
+            ep_tab, sel_tab = etc1s_tables(etc1s, endpoints, selectors, kind, dev)
+            streams = idx[: len(etc1s.INDEX_BOOKS[kind])]
+            k_out = etc1s.etc1s_kernel(kind)(ep_tab, sel_tab, *streams)
+            p_out = torch.empty_like(k_out)
+            etc1s.PLAIN[kind](ep_tab, sel_tab, streams, p_out)
+            torch.cuda.synchronize()
+            diff = int((k_out.to(torch.int32) - p_out.to(torch.int32)).abs().max())
+            require(diff == 0, f"ETC1S {kind}, {e}-entry codebooks: kernel differs from the plain version "
+                               f"(max byte diff {diff})")
+            worst[kind] = max(worst[kind], diff)
+        print(f"phase 14 etc1s E = S = {e}: {N_RANDOM} blocks, kernel == plain for "
+              + ", ".join(etc1s.KINDS) + f" (tolerance 0, max abs err 0) [{card}]")
+    return worst
+
+
+def etc1s_main_path(etc1s, dev, card: str, endpoints, selectors, idx) -> dict:
+    """Phase 15: the ETC1S block main path at N_FULL blocks, each kind
+    bit-exact against its plain version with one launch, then timed;
+    returns {kind: {launches, max_abs_err, ms, plain_ms}}."""
+    tables = {k: etc1s_tables(etc1s, endpoints, selectors, k, dev) for k in etc1s.KINDS}
+    calls = {
+        "rgba": lambda: etc1s.run_etc1s_rgba(endpoints, selectors, idx[0], idx[1]),
+        "rgba_alpha": lambda: etc1s.run_etc1s_rgba(endpoints, selectors, idx[0], idx[1], (idx[2], idx[3])),
+        # K7 has no entry of its own (the file path fuses it into K8): its wrapper
+        "alpha": lambda: etc1s.etc1s_kernel("alpha")(*tables["alpha"], idx[0], idx[1]),
+        "etc1": lambda: etc1s.run_etc1s_etc1(endpoints, selectors, idx[0], idx[1]),
+    }
+    results = {}
+    for kind in ("rgba", "rgba_alpha", "alpha", "etc1"):
+        streams = idx[: len(etc1s.INDEX_BOOKS[kind])]
+        calls[kind]()  # warm-up (library load, allocator)
+        torch.cuda.synchronize()
+        etc1s.reset_counts()
+        out = calls[kind]()
+        torch.cuda.synchronize()
+        launches, plain_calls = etc1s.launch_counts(), etc1s.plain_call_counts()
+        p_out = torch.empty(N_FULL, etc1s.OUT_BYTES[kind], dtype=torch.uint8, device=dev)
+        etc1s.PLAIN[kind](*tables[kind], streams, p_out)
+        got = out.view(torch.uint8)
+        require(tuple(got.shape) == tuple(p_out.shape) and got.device == dev, f"{kind} output shape/device")
+        require(bool(torch.equal(got, p_out)), f"ETC1S {kind} main path differs from the plain version")
+        require(launches == {k: int(k == kind) for k in etc1s.KINDS}, f"ETC1S {kind} launch counts {launches}")
+        require(sum(plain_calls.values()) == 0, f"plain version called on the ETC1S main path: {plain_calls}")
+        print(f"phase 15 etc1s {kind} main path: {N_FULL} blocks bit-exact vs the plain version; launches "
+              f"{launches[kind]}; plain-version calls 0 [{card}]")
+        del out, got
+
+        k_out = torch.empty_like(p_out)
+
+        def launch_alone():
+            etc1s.etc1s_kernel(kind)(*tables[kind], *streams, out=k_out, check_index=False)
+
+        call_times = times_ms(calls[kind])
+        call_ms = statistics.median(call_times)
+        q1, _, q3 = statistics.quantiles(call_times, n=4)
+        launch_ms = median_ms(launch_alone)
+        dev_ms = median_ms(launch_alone, preload=True)
+        plain_ms = median_ms(lambda: etc1s.PLAIN[kind](*tables[kind], streams, p_out), PLAIN_REPS)
+        del k_out, p_out
+        torch.cuda.empty_cache()
+        nbytes = etc1s_block_bytes(etc1s, kind)
+        bound = N_FULL * nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"phase 15 etc1s {kind} time [{card}]: whole call {call_ms:.4f} ms = {mtex(N_FULL, call_ms):.1f} "
+              f"Mtexels/s (median of {REPS}, CUDA events; quartiles {q1:.4f}-{q3:.4f} ms); launch as called "
+              f"{launch_ms:.4f} ms; device time {dev_ms:.4f} ms = {mtex(N_FULL, dev_ms):.1f} Mtexels/s; HBM bound "
+              f"{bound:.4f} ms ({nbytes} B a block at 3.35 TB/s, {100 * bound / dev_ms:.1f}% of device time); plain "
+              f"PyTorch version {plain_ms:.4f} ms (as called, median of {PLAIN_REPS})")
+        results[kind] = dict(launches=launches[kind], ms=dev_ms, plain_ms=plain_ms)
+    return results
+
+
+def etc1s_file_path(etc1s, basis, readers, dev, card: str, endpoints, selectors, idx_np, idx) -> None:
+    """Phase 16: two full-size ETC1S files through read_to_rgba and
+    read_to_etc1, image by image against the plain version on the writer's
+    index streams, one launch a file, with the time split of one call."""
+    from basisu_rs_tpu_torch.container.writer import write_etc1s_basis
+
+    per = SLICE_BLOCKS_X * SLICE_BLOCKS_X
+    w = 4 * SLICE_BLOCKS_X
+
+    def slice_dict(ep, sel, alpha=False):
+        return dict(ep_idx=ep, sel_idx=sel, nbx=SLICE_BLOCKS_X, nby=SLICE_BLOCKS_X, orig_width=w, orig_height=w,
+                    alpha=alpha)
+
+    # file A: 8 slices of idx[0], idx[1]; file B: 4 (RGB, alpha) pairs, RGB
+    # from idx[0], idx[1], alpha from idx[2], idx[3], over the first 4 slices
+    layout = {
+        "array": [(0, 1, j, False) for j in range(SLICES)],
+        "alpha": [(a, b, j, alpha) for j in range(SLICES // 2) for a, b, alpha in ((0, 1, False), (2, 3, True))],
+    }
+    files = {}
+    for name, spec in layout.items():
+        t0 = time.perf_counter()
+        sl = [slice_dict(idx_np[a][j * per:(j + 1) * per], idx_np[b][j * per:(j + 1) * per], alpha)
+              for a, b, j, alpha in spec]
+        files[name] = write_etc1s_basis(endpoints, selectors, sl, has_alpha=name == "alpha")
+        print(f"phase 16 file {name}: {len(spec)} slices of {w}x{w} texels, {len(files[name])} bytes, written in "
+              f"{time.perf_counter() - t0:.2f} s (host)")
+
+    tables = {k: etc1s_tables(etc1s, endpoints, selectors, k, dev) for k in etc1s.KINDS}
+
+    def plain_out(kind, streams):
+        out = torch.empty(streams[0].shape[0], etc1s.OUT_BYTES[kind], dtype=torch.uint8, device=dev)
+        etc1s.PLAIN[kind](*tables[kind], streams, out)
+        return out
+
+    def check_images(name, reader_name, images):
+        spec = layout[name]
+        if reader_name == "rgba":
+            pairs = name == "alpha"
+            rgb = [s for s in spec if not s[3]]
+            require(len(images) == len(rgb), f"{name} rgba: {len(images)} images")
+            for img, (a, b, j, _) in zip(images, rgb):
+                rows = slice(j * per, (j + 1) * per)
+                streams = [idx[a][rows], idx[b][rows]] + ([idx[2][rows], idx[3][rows]] if pairs else [])
+                exp = plain_out("rgba_alpha" if pairs else "rgba", streams).view(torch.int32)
+                require((img.w, img.h, img.stride) == (w, w, 16 * SLICE_BLOCKS_X), f"{name} rgba image geometry")
+                # raster rows -> [by, bx, y, x] texels: the inverse of the reader's reorder
+                got = img.data.view(torch.int32).view(SLICE_BLOCKS_X, 4, SLICE_BLOCKS_X, 4).permute(0, 2, 1, 3)
+                require(bool(torch.equal(got.reshape(-1, 16), exp)), f"{name} rgba image {j} differs from plain")
+        else:
+            require(len(images) == len(spec), f"{name} etc1: {len(images)} images")
+            for img, (a, b, j, _) in zip(images, spec):
+                rows = slice(j * per, (j + 1) * per)
+                exp = plain_out("etc1", [idx[a][rows], idx[b][rows]]).reshape(-1)
+                require((img.w, img.h, img.stride) == (w, w, 8 * SLICE_BLOCKS_X), f"{name} etc1 image geometry")
+                require(bool(torch.equal(img.data, exp)), f"{name} etc1 image {j} differs from plain")
+
+    for name, buf in files.items():
+        for reader_name, reader in readers.items():
+            kind = {"rgba": "rgba_alpha" if name == "alpha" else "rgba", "etc1": "etc1"}[reader_name]
+            reader(buf)  # warm-up
+            torch.cuda.synchronize()
+            etc1s.reset_counts()
+            images = reader(buf)
+            torch.cuda.synchronize()
+            launches, plain_calls = etc1s.launch_counts(), etc1s.plain_call_counts()
+            require(launches == {k: int(k == kind) for k in etc1s.KINDS}, f"{name} {reader_name} launches {launches}")
+            require(sum(plain_calls.values()) == 0, f"plain version called on the ETC1S file path: {plain_calls}")
+            check_images(name, reader_name, images)
+            del images
+
+            header, descs = basis._validated(buf)
+            pairs = reader_name == "rgba" and header.has_alpha
+            dec = basis.make_etc1s_decoder(header, buf)
+            host, slices = basis.etc1s_index_streams(buf, dec, descs, pairs)
+            t = torch.from_numpy(host).to(dev)
+            if reader_name == "rgba":
+                alpha_pass = (t[2], t[3]) if pairs else None
+
+                def kernel():
+                    return etc1s.run_etc1s_rgba(dec.endpoints, dec.selectors, t[0], t[1], alpha_pass, dev,
+                                                check_index=False)
+            else:
+
+                def kernel():
+                    return etc1s.run_etc1s_etc1(dec.endpoints, dec.selectors, t[0], t[1], dev, check_index=False)
+
+            out = kernel()
+            split = {
+                "header + CRC, host": host_ms(lambda: basis._validated(buf)),
+                "codebook decode, host": host_ms(lambda: basis.make_etc1s_decoder(header, buf)),
+                "slice front-end (C++), host": host_ms(lambda: basis.etc1s_index_streams(buf, dec, descs, pairs)),
+                "H2D copy of the indices": host_ms(lambda: torch.from_numpy(host).to(dev)),
+                "kernel": host_ms(kernel),
+            }
+            if reader_name == "rgba":
+                split["RGBA reorder"] = host_ms(lambda: basis.rgba_images(out, slices))
+            split["whole call"] = host_ms(lambda: reader(buf))
+            blocks = host.shape[1] * (2 if pairs else 1)  # blocks through the front-end
+            del out, t
+            torch.cuda.empty_cache()
+            print(f"phase 16 {name} read_to_{reader_name} [{card}]: {len(slices)} images bit-exact vs the plain "
+                  f"version; launches {launches[kind]} ({kind}); plain-version calls 0")
+            print(f"phase 16 {name} read_to_{reader_name} split [{card}] (host clock + sync, median of {FILE_REPS}, "
+                  f"ms): " + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+                  + f"; front-end {1e6 * split['slice front-end (C++), host'] / blocks:.2f} ns a block over "
+                  f"{blocks} blocks; whole call {mtex(host.shape[1], split['whole call']):.1f} Mtexels/s")
+
+    corrupt = bytearray(files["array"])
+    corrupt[-1000] ^= 0x10
+    odd = write_etc1s_basis(endpoints, selectors, [slice_dict(idx_np[0][:per], idx_np[1][:per]),
+                                                   slice_dict(idx_np[2][:per], idx_np[3][:per], True),
+                                                   slice_dict(idx_np[0][per:2 * per], idx_np[1][per:2 * per])],
+                            has_alpha=True)
+    for label, buf, msg in (("corrupt CRC", bytes(corrupt), "Data CRC16 failed"),
+                            ("odd-slice alpha", odd, "File has alpha, but slice count is odd")):
+        for reader_name, reader in readers.items():
+            try:
+                reader(buf)
+            except basis.BasisError as e:
+                require(str(e) == msg, f"{label} via read_to_{reader_name}: message {e!r}, expected {msg!r}")
+            else:
+                raise RuntimeError(f"{label} ETC1S file accepted by read_to_{reader_name}")
+    print(f"phase 16 errors: a corrupt-CRC ETC1S file and an odd-slice alpha file raise the reference's messages "
+          f"through read_to_rgba/read_to_etc1 [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card")
@@ -159,7 +409,7 @@ def main() -> int:
     )
     from basisu_rs_tpu_torch.container import basis
     from basisu_rs_tpu_torch.container.writer import write_uastc_basis
-    from basisu_rs_tpu_torch.ops import build, kernels
+    from basisu_rs_tpu_torch.ops import build, etc1s, kernels
     from basisu_rs_tpu_torch.ops.dispatch import block_modes, transcode_blocks
     from basisu_rs_tpu_torch.tables import INVALID_MODE, MODES, np_tables
 
@@ -193,7 +443,13 @@ def main() -> int:
                 f"  ptxas uastc_kernel<{OP_NAME[t]}<{m}>>: {r['registers']} registers, {r['stack']} B stack, "
                 f"{r['spill_stores']} B spill stores, {r['spill_loads']} B spill loads"
             )
-    print("phase 2 ptxas json " + json.dumps({f"{t}/{m}": v for (t, m), v in sorted(ptxas.items())}))
+    for kind in etc1s.KINDS:
+        require(("etc1s", kind) in ptxas and "registers" in ptxas[("etc1s", kind)], f"no ptxas report for {kind}")
+        r = ptxas[("etc1s", kind)]
+        print(f"  ptxas etc1s_kernel<{etc1s.KINDS.index(kind)}> ({kind}): {r['registers']} registers, {r['stack']} B "
+              f"stack, {r['spill_stores']} B spill stores, {r['spill_loads']} B spill loads")
+    require(len(ptxas) == 99, f"ptxas reports {len(ptxas)} kernels, expected 99")
+    print("phase 2 ptxas json " + json.dumps({f"{t}/{m}": v for (t, m), v in sorted(ptxas.items(), key=str)}))
 
     golden = np.load(FIXTURE)
     lut = np_tables()["MODE_LUT"]
@@ -480,6 +736,17 @@ def main() -> int:
     for t in ("etc1", "etc2"):
         file_path(13, t)
     file_errors(13, ("etc1", "etc2"))
+    torch.cuda.empty_cache()
+
+    # ---- phases 14-16: the ETC1S back-end (K6-K9) and its files ----------------
+    etc1s_max_abs = etc1s_kernel_vs_plain(etc1s, dev, card)
+    rng = np.random.default_rng(SEED + 1)
+    endpoints, selectors = etc1s_codebooks(rng, ETC1S_BOOK, ETC1S_BOOK)
+    idx_np = [rng.integers(0, ETC1S_BOOK, N_FULL).astype(np.uint16) for _ in range(4)]
+    idx = [torch.from_numpy(a).to(dev) for a in idx_np]
+    etc1s_results = etc1s_main_path(etc1s, dev, card, endpoints, selectors, idx)
+    etc1s_file_path(etc1s, basis, {"rgba": lambda b: read_to_rgba(b)[1], "etc1": read_to_etc1}, dev, card,
+                    endpoints, selectors, idx_np, idx)
 
     result = {
         "kernels": [
@@ -498,6 +765,22 @@ def main() -> int:
             }
             for t in TARGETS
             for m in range(19)
+        ]
+        + [
+            {
+                "name": f"etc1s_kernel<{etc1s.KINDS.index(kind)}> ({kind})",
+                "route": "cuda",
+                "source": "basisu_rs_tpu_torch/csrc/etc1s.cu",
+                "replaces": f"{ETC1S_REPLACES} (_build(\"{kind}\"))",
+                "launches": etc1s_results[kind]["launches"],
+                "max_abs_err": etc1s_max_abs[kind],
+                "ms": etc1s_results[kind]["ms"],
+                "plain_ms": etc1s_results[kind]["plain_ms"],
+                "bound_ms": N_FULL * etc1s_block_bytes(etc1s, kind) / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes",
+                "library_ms": None,
+            }
+            for kind in etc1s.KINDS
         ]
     }
     print(json.dumps(result))

@@ -9,9 +9,9 @@ import torch
 
 import basisu_rs_tpu.api as japi
 import basisu_rs_tpu_torch as tapi
-from basisu_rs_tpu.container.writer import write_uastc_basis
+from basisu_rs_tpu.container.writer import write_etc1s_basis, write_uastc_basis
 from basisu_rs_tpu.tables import MODES
-from basisu_rs_tpu_torch.ops import kernels
+from basisu_rs_tpu_torch.ops import etc1s, kernels
 
 CPU = "cpu"
 
@@ -171,6 +171,15 @@ def _file(golden):
     return write_uastc_basis([dict(blocks=golden["bc7_in"][:16], nbx=4, nby=4, orig_width=16, orig_height=16)])
 
 
+_ENDPOINTS = np.array([[1, 2, 3, 4], [31, 0, 17, 7]], np.uint8)
+_SELECTORS = np.array([[0, 255, 27, 228]], np.uint8)
+
+
+def _etc1s_file():
+    return write_etc1s_basis(_ENDPOINTS, _SELECTORS, [dict(ep_idx=[0, 1, 1, 0], sel_idx=[0] * 4, nbx=2, nby=2,
+                                                           orig_width=8, orig_height=8)])
+
+
 ENTRY_POINTS = {
     "transcode_uastc_blocks": lambda g: tapi.transcode_uastc_blocks(g["bc7_in"][:4], "bc7"),
     "transcode_uastc_block_to_bc7": lambda g: tapi.transcode_uastc_block_to_bc7(g["bc7_in"][0]),
@@ -184,6 +193,12 @@ ENTRY_POINTS = {
     "read_to_etc1": lambda g: tapi.read_to_etc1(_file(g)),
     "read_to_etc2": lambda g: tapi.read_to_etc2(_file(g)),
     "read_to_uastc": lambda g: tapi.read_to_uastc(_file(g)),
+    "read_to_rgba(etc1s)": lambda g: tapi.read_to_rgba(_etc1s_file()),
+    "read_to_etc1(etc1s)": lambda g: tapi.read_to_etc1(_etc1s_file()),
+    "run_etc1s_rgba": lambda g: etc1s.run_etc1s_rgba(_ENDPOINTS, _SELECTORS, [0, 1], [0, 0]),
+    "run_etc1s_rgba(alpha)": lambda g: etc1s.run_etc1s_rgba(_ENDPOINTS, _SELECTORS, [0, 1], [0, 0],
+                                                            alpha_pass=([1, 1], [0, 0])),
+    "run_etc1s_etc1": lambda g: etc1s.run_etc1s_etc1(_ENDPOINTS, _SELECTORS, [0, 1], [0, 0]),
 }
 
 
@@ -193,9 +208,11 @@ def test_entry_point_defaults_to_cuda(golden, entry, monkeypatch):
     # raises instead of running on the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     kernels.reset_counts()
+    etc1s.reset_counts()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ENTRY_POINTS[entry](golden)
     assert sum(sum(c) for c in kernels.plain_call_counts().values()) == 0
+    assert sum(etc1s.plain_call_counts().values()) == 0
 
 
 @pytest.mark.parametrize("target", ["png", "bc1"])

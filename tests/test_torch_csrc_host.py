@@ -1,9 +1,11 @@
 """PyTorch port: the kernels' own per-block sources, compiled for the host.
 
 `basisu_rs_tpu_torch/csrc/uastc_{bc7,astc,rgba,etc}.cuh` (over the shared
-`uastc_decode.cuh`) hold the per-block logic of K1-K5 behind a macro shim, so g++ builds the exact code the CUDA kernels run.  This test builds
-them into a temporary directory, calls them over ctypes and holds every mode
-against the plain PyTorch versions (tolerance 0): shift, signedness and
+`uastc_decode.cuh`) and `csrc/etc1s.cuh` hold the per-block logic of K1-K9
+behind a macro shim, so g++ builds the exact code the CUDA kernels run.
+This test builds them into a temporary directory, calls them over ctypes
+and holds every mode and ETC1S kind against the plain PyTorch versions
+(tolerance 0): shift, signedness and
 table-index faults show here without a card.  The package never loads this
 build; it skips only when g++ is absent.  The last test checks the ptxas
 report parser of `ops/build.py` on a canned nvcc log."""
@@ -17,11 +19,12 @@ import pytest
 import torch
 
 from basisu_rs_tpu.tables import np_tables
-from basisu_rs_tpu_torch.ops import build, kernels
-from torch_cases import bias_reference, eac_reference_selectors, etc1_selector_cases
+from basisu_rs_tpu_torch.ops import build, etc1s, kernels
+from torch_cases import bias_reference, eac_reference_selectors, etc1_selector_cases, etc1s_inputs
 
 HOST_ENTRY = r"""
 #include <string.h>
+#include "etc1s.cuh"
 #include "uastc_astc.cuh"
 #include "uastc_bc7.cuh"
 #include "uastc_etc.cuh"
@@ -100,6 +103,33 @@ extern "C" void apply_bias_host(int bias, int subblock, int channel, int limit, 
   const uint32_t field = (ub::ETC_BIAS_PACKED[bias] >> (2 * (3 * subblock + channel))) & 3u;
   for (int v = 0; v <= limit; ++v) out[v] = ub::apply_bias(v, static_cast<int32_t>(field), limit);
 }
+
+// K6-K9 over n blocks, as etc1s_kernel<KIND> computes each: the codebook
+// words gathered through etc1s_word, then the four rows (texel kinds) or
+// the ETC1 block.
+extern "C" void etc1s_host(int kind, const uint32_t* ep_tab, int n_ep, const uint32_t* sel_tab, int n_sel,
+                           const uint16_t* i0, const uint16_t* i1, const uint16_t* i2, const uint16_t* i3,
+                           long long n, uint8_t* out) {
+  for (long long b = 0; b < n; ++b) {
+    const uint32_t ep = ub::etc1s_word(ep_tab, n_ep, i0[b]), sel = ub::etc1s_word(sel_tab, n_sel, i1[b]);
+    if (kind == ub::ETC1S_ETC1) {
+      uint32_t o[2];
+      ub::etc1s_etc1_block(ep, sel, o);
+      memcpy(out + 8 * b, o, 8);
+      continue;
+    }
+    const bool pair = kind == ub::ETC1S_RGBA_ALPHA;
+    const uint32_t a_ep = pair ? ub::etc1s_word(ep_tab, n_ep, i2[b]) : 0;
+    const uint32_t a_sel = pair ? ub::etc1s_word(sel_tab, n_sel, i3[b]) : 0;
+    for (int y = 0; y < 4; ++y) {
+      uint32_t o[4];
+      if (kind == ub::ETC1S_RGBA) ub::etc1s_row<ub::ETC1S_RGBA>(ep, sel, a_ep, a_sel, y, o);
+      else if (kind == ub::ETC1S_ALPHA) ub::etc1s_row<ub::ETC1S_ALPHA>(ep, sel, a_ep, a_sel, y, o);
+      else ub::etc1s_row<ub::ETC1S_RGBA_ALPHA>(ep, sel, a_ep, a_sel, y, o);
+      memcpy(out + 64 * b + 16 * y, o, 16);
+    }
+  }
+}
 """
 
 TARGET_IDS = {"bc7": 0, "astc": 1, "rgba": 2, "etc1": 3, "etc2": 4}
@@ -125,7 +155,8 @@ def host_lib(tmp_path_factory):
     lib.fl_div255_host.argtypes = [ctypes.c_int]
     i, p = ctypes.c_int, ctypes.c_void_p
     for name, args in (("eac_selectors_host", [i, i, p]), ("etc1_selectors_host", [p, p, i, p]),
-                       ("subblock_averages_host", [i, i, p]), ("apply_bias_host", [i, i, i, i, p])):
+                       ("subblock_averages_host", [i, i, p]), ("apply_bias_host", [i, i, i, i, p]),
+                       ("etc1s_host", [i, p, i, p, i, p, p, p, p, ctypes.c_longlong, p])):
         fn = getattr(lib, name)
         fn.restype = None
         fn.argtypes = args
@@ -218,6 +249,27 @@ def test_host_bias_rule_exhaustive(host_lib, limit):
                                               err_msg=f"bias {bias} subblock {sb} channel {c}")
 
 
+@pytest.mark.parametrize("kind", etc1s.KINDS)
+@pytest.mark.parametrize("size", [(1, 1, 64, 20), (200, 150, 1000, 21), (2048, 2048, 600, 22), (65535, 65535, 300, 23)],
+                         ids=lambda s: f"E{s[0]}-S{s[1]}")
+def test_host_build_etc1s_matches_plain(host_lib, kind, size):
+    # csrc/etc1s.cuh, as the kernels run it, against the plain K6-K9
+    endpoints, selectors, idx = etc1s_inputs(*size)
+    ep_words = etc1s.pack_endpoints(endpoints)
+    sel_words = etc1s.selector_wire_words(selectors) if kind == "etc1" else etc1s.pack_selectors(selectors)
+    streams = idx[: len(etc1s.INDEX_BOOKS[kind])]
+    n = len(streams[0])
+    out = np.zeros((n, etc1s.OUT_BYTES[kind]), np.uint8)
+    ptrs = [a.ctypes.data for a in streams] + [None] * (4 - len(streams))
+    host_lib.etc1s_host(etc1s.KINDS.index(kind), ep_words.ctypes.data, len(ep_words), sel_words.ctypes.data,
+                        len(sel_words), *ptrs, n, out.ctypes.data)
+    ep_tab, sel_tab = etc1s.codebook_tensor(ep_words, "cpu"), etc1s.codebook_tensor(sel_words, "cpu")
+    expect = etc1s.etc1s_kernel(kind)(ep_tab, sel_tab, *[torch.from_numpy(a) for a in streams])
+    bad = np.nonzero(np.any(out != expect.numpy(), axis=1))[0]
+    assert bad.size == 0, f"{kind}: {bad.size}/{n} blocks differ; first {bad[0]}: host {out[bad[0]].tolist()} " \
+                          f"plain {expect.numpy()[bad[0]].tolist()}"
+
+
 PTXAS_LOG = """\
 ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '_ZN2ub12uastc_kernelIN12_GLOBAL__N_13Bc7ILi2EEEEEvPK5uint4PKxiPS5_Ph' for 'sm_90a'
@@ -240,6 +292,10 @@ ptxas info    : Compiling entry function '_ZN2ub12uastc_kernelIN12_GLOBAL__N_14E
 ptxas info    : Function properties for _ZN2ub12uastc_kernelIN12_GLOBAL__N_14Etc2ILi15EEEEEvPK5uint4PKxiPvPh
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 72 registers, used 0 barriers, 388 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN2ub12etc1s_kernelILi2EEEvPKjjS2_jPKtS4_S4_S4_iPv' for 'sm_90a'
+ptxas info    : Function properties for _ZN2ub12etc1s_kernelILi2EEEvPKjjS2_jPKtS4_S4_S4_iPv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 30 registers, used 0 barriers, 416 bytes cmem[0]
 """
 
 
@@ -250,4 +306,5 @@ def test_ptxas_report_parser():
         ("rgba", 9): {"registers": 64, "stack": 0, "spill_stores": 0, "spill_loads": 0},
         ("etc1", 11): {"registers": 56, "stack": 0, "spill_stores": 0, "spill_loads": 0},
         ("etc2", 15): {"registers": 72, "stack": 0, "spill_stores": 0, "spill_loads": 0},
+        ("etc1s", "rgba_alpha"): {"registers": 30, "stack": 0, "spill_stores": 0, "spill_loads": 0},
     }

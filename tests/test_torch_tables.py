@@ -23,14 +23,16 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def test_import_leaves_jax_out():
     # the test process already holds jax (conftest), so check a fresh one:
-    # import every module of the port and chip_smoke, then look at what
-    # got loaded and from where
+    # import every module of the port and chip_smoke and load its native
+    # host libraries, then look at what got loaded and from where
     code = (
         "import pkgutil, sys\n"
         "from pathlib import Path\n"
         "import basisu_rs_tpu_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(basisu_rs_tpu_torch.__path__, 'basisu_rs_tpu_torch.'):\n"
         "    __import__(m.name)\n"
+        "from basisu_rs_tpu_torch.container import crc, etc1s_frontend\n"
+        "crc._lib(), etc1s_frontend._lib()  # the host C++ libraries, built and bound\n"
         "jax_pkg = Path('basisu_rs_tpu').resolve()\n"
         "under = sorted(k for k, m in list(sys.modules.items())\n"
         "               if getattr(m, '__file__', None) and jax_pkg in Path(m.__file__).resolve().parents)\n"
@@ -45,7 +47,7 @@ def test_import_leaves_jax_out():
     jax_mods, under, n_port = res.stdout.split("\n")[:3]
     assert jax_mods == "no-jax"
     assert under == "none-under-jax-package"
-    assert int(n_port) >= 15  # every module of the port was imported
+    assert int(n_port) >= 27  # every module of the port was imported
 
 
 def test_header_matches_generator():

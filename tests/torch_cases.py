@@ -88,3 +88,20 @@ def bias_reference(bias, limit, subblock, channel):
     """int [limit + 1]: the reference's bias nudge of v = 0..limit
     (oracle_uastc._apply_etc1_bias)."""
     return np.array([ou._apply_etc1_bias([v, v, v], bias, limit, subblock)[channel] for v in range(limit + 1)])
+
+
+def etc1s_codebooks(rng, e, s):
+    """Seeded ETC1S codebooks: endpoints uint8 [e, 4] (r5, g5, b5, inten3)
+    and selectors uint8 [s, 4] row bytes, as tests/test_etc1s_oracle.py
+    makes them."""
+    endpoints = np.zeros((e, 4), np.uint8)
+    endpoints[:, :3] = rng.integers(0, 32, (e, 3))
+    endpoints[:, 3] = rng.integers(0, 8, e)
+    return endpoints, rng.integers(0, 256, (s, 4)).astype(np.uint8)
+
+
+def etc1s_inputs(e, s, n, seed):
+    """(endpoints, selectors, [ep, sel, alpha ep, alpha sel] uint16 [n])."""
+    rng = np.random.default_rng(seed)
+    endpoints, selectors = etc1s_codebooks(rng, e, s)
+    return endpoints, selectors, [rng.integers(0, m, n).astype(np.uint16) for m in (e, s, e, s)]
