@@ -53,6 +53,12 @@ LAUNCH = {
 # C launch entry point of the ETC1S kernels K6-K9 (csrc/etc1s.cu)
 ETC1S_LAUNCH = "etc1s_launch"
 ETC1S_KINDS = ("rgba", "alpha", "rgba_alpha", "etc1")  # the kernels' KIND 0..3
+# C launch entry point of the K1 stage kernels T1 (csrc/uastc_bc7_stages.cu)
+# and their stages, index = the kernels' S
+BC7_STAGE_LAUNCH = "bc7_stage_launch"
+BC7_STAGES = ("full", "decode_endpoints", "decode_weights", "decode_fields", "pbit")
+# C launch entry point of the fl_div255 probe P (csrc/fl_div255_probe.cu)
+PROBE_LAUNCH = "fl_div255_launch"
 
 
 def nvcc_path() -> str:
@@ -184,6 +190,19 @@ def load() -> ctypes.CDLL:
         ctypes.c_void_p,  # out
         ctypes.c_void_p,  # stream
     ]
+    fn = getattr(lib, BC7_STAGE_LAUNCH)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_int,  # mode
+        ctypes.c_int,  # stage
+        ctypes.c_void_p,  # in
+        ctypes.c_int,  # n
+        ctypes.c_void_p,  # out
+        ctypes.c_void_p,  # stream
+    ]
+    fn = getattr(lib, PROBE_LAUNCH)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]  # x, n, out, stream
     return lib
 
 
@@ -197,22 +216,32 @@ _SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) b
 _REGS = re.compile(r"Used (\d+) registers")
 _KERNEL = re.compile(r"uastc_kernel.*\d(Bc7|Astc|Rgba|Etc1|Etc2)ILi(\d+)E")
 _ETC1S_KERNEL = re.compile(r"etc1s_kernelILi(\d)E")
+_STAGE_KERNEL = re.compile(r"bc7_stage_kernelILi(\d+)ELi(\d)E")
+_PROBE_KERNEL = re.compile(r"fl_div255_probe_kernel")
 
 
 def _kernel_key(name: str):
     """(target, mode) of a uastc_kernel<Op<M>>, ("etc1s", kind) of an
-    etc1s_kernel<KIND>, None for any other mangled name."""
+    etc1s_kernel<KIND>, ("bc7_stage/<stage>", mode) of a
+    bc7_stage_kernel<M, S>, ("probe", "fl_div255") of the probe, None for
+    any other mangled name."""
     k = _KERNEL.search(name)
     if k:
         return k.group(1).lower(), int(k.group(2))
     k = _ETC1S_KERNEL.search(name)
-    return ("etc1s", ETC1S_KINDS[int(k.group(1))]) if k else None
+    if k:
+        return "etc1s", ETC1S_KINDS[int(k.group(1))]
+    k = _STAGE_KERNEL.search(name)
+    if k:
+        return f"bc7_stage/{BC7_STAGES[int(k.group(2))]}", int(k.group(1))
+    return ("probe", "fl_div255") if _PROBE_KERNEL.search(name) else None
 
 
 def parse_ptxas(text: str) -> dict:
-    """{(target, mode) or ("etc1s", kind): {"registers", "stack",
-    "spill_stores", "spill_loads"}} from the `-Xptxas -v` lines of an nvcc
-    log (kernels uastc_kernel<Op<M>> and etc1s_kernel<KIND>)."""
+    """{key: {"registers", "stack", "spill_stores", "spill_loads"}} from the
+    `-Xptxas -v` lines of an nvcc log, keyed as `_kernel_key` says
+    (uastc_kernel<Op<M>>, etc1s_kernel<KIND>, bc7_stage_kernel<M, S> and
+    the fl_div255 probe)."""
     out: dict = {}
     cur = None
     for line in text.splitlines():

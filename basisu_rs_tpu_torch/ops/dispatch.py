@@ -31,19 +31,19 @@ def block_modes(blocks: torch.Tensor) -> torch.Tensor:
     return lut[(blocks[:, 0] & 0x7F).to(torch.int64)]
 
 
-def transcode_blocks(blocks: torch.Tensor, target: str = "bc7"):
-    """uint8 [N,16] UASTC blocks -> (out, err bool [N]) on the blocks'
-    device.  out is uint8 [N, OUT_BYTES[target]] block bytes for "bc7",
-    "astc" (16), "etc1" (8) and "etc2" (16: the EAC alpha block, then the
-    ETC1 block), and for "rgba" the torch.uint32 [N,16] view of the
-    kernel's uint8 [N,64] texel rows (little-endian RGBA words, as the JAX
-    package's uint32 [N,16]).
-    err marks an invalid mode or pattern index."""
-    check_target(target)
-    n = blocks.shape[0]
+def partition(blocks: torch.Tensor):
+    """(order, counts) of uint8 [N,16] blocks: the block indices sorted by
+    mode (stable) and the 20 per-mode counts, read back to the host (the one
+    host sync of a transcode)."""
     modes = block_modes(blocks)
     order = torch.argsort(modes, stable=True)
-    counts = torch.bincount(modes, minlength=INVALID_MODE + 1).tolist()
+    return order, torch.bincount(modes, minlength=INVALID_MODE + 1).tolist()
+
+
+def dispatch(blocks: torch.Tensor, target: str, order: torch.Tensor, counts) -> tuple:
+    """One launch per present mode over partition()'s groups, enqueued
+    without a sync; returns (out, err) as transcode_blocks does."""
+    n = blocks.shape[0]
     out = torch.empty(n, OUT_BYTES[target], dtype=torch.uint8, device=blocks.device)
     err = torch.empty(n, dtype=torch.bool, device=blocks.device)
     start = 0
@@ -58,3 +58,15 @@ def transcode_blocks(blocks: torch.Tensor, target: str = "bc7"):
                 mode_kernel(target, mode)(blocks, idx, out, err, check_index=False)
         start += count
     return (out.view(torch.uint32) if target == "rgba" else out), err
+
+
+def transcode_blocks(blocks: torch.Tensor, target: str = "bc7"):
+    """uint8 [N,16] UASTC blocks -> (out, err bool [N]) on the blocks'
+    device.  out is uint8 [N, OUT_BYTES[target]] block bytes for "bc7",
+    "astc" (16), "etc1" (8) and "etc2" (16: the EAC alpha block, then the
+    ETC1 block), and for "rgba" the torch.uint32 [N,16] view of the
+    kernel's uint8 [N,64] texel rows (little-endian RGBA words, as the JAX
+    package's uint32 [N,16]).
+    err marks an invalid mode or pattern index."""
+    check_target(target)
+    return dispatch(blocks, target, *partition(blocks))

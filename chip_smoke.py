@@ -8,9 +8,9 @@ ETC1, for index streams and for .basis files).
 Phases, each printing its own lines; any failure raises and exits non-zero:
   1. card facts (nvidia-smi name and power limit, torch and CUDA versions);
   2. nvcc build of csrc/*.cu for sm_90a (one nvcc per source, in parallel),
-     with seconds and the ptxas register/spill report of all 99 kernels
+     with seconds and the ptxas register/spill report of all 193 kernels
      (K1 BC7, K2 ASTC, K3 RGBA, K4 ETC1, K5 ETC2, x 19 UASTC modes; K6-K9,
-     the four ETC1S kinds);
+     the four ETC1S kinds; the 93 T1 stage kernels; the probe P);
   3. per UASTC mode 0-18: the BC7 kernel against its plain PyTorch version
      on the card, on that mode's golden blocks plus 65,536 seeded random
      blocks of the mode (invalid pattern indices included), with and
@@ -58,7 +58,39 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      K8) and `read_to_etc1` (K9) image by image against the plain version
      on the writer's index streams, with one launch per file, the time
      split of one call, and a corrupt-CRC file and an odd-slice alpha file
-     that must raise the reference's messages.
+     that must raise the reference's messages;
+ 17. P, the fl_div255 probe: the device `ub::fl_div255` on x = 0..255, bit-
+     equal to IEEE x/255, and on 0..65,535 against the two-roundings formula
+     (for the record: how many of those differ from IEEE x/255), timed;
+ 18. T1, the 93 K1 stage kernels (bc7_stage_kernel<M, S>) against their
+     plain versions per (mode, stage), on that mode's golden blocks plus
+     65,536 seeded random blocks of the mode, bit-exact;
+ 19. T1 timing: the stage tool (`basisu_rs_tpu_torch.tools.ablate_bc7`)
+     over all 19 modes at its own input (131,072 blocks a mode), device
+     time, Mblocks/s and HBM bound per (mode, stage), the checksums of each
+     timed launch against the plain version on the same blocks, bit-exact,
+     and the plain version's time; then per mode, on the same 2^23 blocks
+     of that mode, every stage (checked against the plain version) and K1
+     (checked against the golden outputs) timed, the `full` stage and the
+     other stages set against K1, with K1's phase-5 time beside them;
+ 20. the corpus transcoders at full size: 24 mip-chained 2048x2048 UASTC
+     textures (8,388,600 blocks in 240 slices) through CorpusTranscoder
+     (bc7, rgba) and UastcTranscoder.transcode_async + gather, bit-exact
+     against transcode_uastc_blocks, at most 19 launches a call, timed at
+     three corpus sizes (~2^19, ~2^21, ~2^23 blocks); 64 ETC1S files of
+     2,048-entry codebooks (2^23 blocks) through Etc1sMultiCorpusTranscoder
+     (rgba, etc1, one resident run) against per-file Etc1sCorpusTranscoder
+     runs, 2 launches a target (the 65,536-entry cap), timed;
+ 21. the corpus pipeline: 64 mip-chained 1024x1024 UASTC files, 16 ETC1S
+     files (8 with alpha slices) and one corrupt file on disk, written by
+     the port's writers, through BasisCorpusPipeline (workers 1 and 4) and
+     an inline read_to_rgba loop, images bit-exact across the three, the
+     corrupt file in `errors` with the reference's message, a resume that
+     skips the files done, all three timed;
+ 22. the CLI on the card: `python -m basisu_rs_tpu_torch selftest` as a
+     subprocess, `info` of a file, and `transcode --container ktx2|ktx|png`
+     whose files equal the writers applied to the readers' output.
+Phases 17-22 print their seconds.
 The last two lines before the final one are a JSON line of per-kernel
 results and the card's name and power limit; the final line is the
 `{"ok": true, "device": ...}` result.  Imports torch, numpy and
@@ -77,6 +109,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from basisu_rs_tpu_torch.utils.profiling import HBM_BYTES_PER_S, event_times_ms
+
 ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "tests" / "fixtures" / "golden_blocks.npz"
 N_FULL = 1 << 23
@@ -85,9 +119,7 @@ SEED = 0
 REPS = 10
 PLAIN_REPS = 5
 FILE_REPS = 3
-PRELOAD_CYCLES = 20_000_000  # ~10 ms of sleep at 2 GHz: longer than any enqueue timed here
 TEXELS_PER_BLOCK = 16
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
 INDEX_BYTES = 8  # the dispatch's int64 index of a block, read once by its launch
 TARGETS = ("bc7", "astc", "rgba", "etc1", "etc2")
 OP_NAME = {"bc7": "Bc7", "astc": "Astc", "rgba": "Rgba", "etc1": "Etc1", "etc2": "Etc2"}
@@ -97,6 +129,15 @@ ETC1S_SIZES = (2048, 16128, 65535, 1)  # phase 14's codebook entries (E = S)
 ETC1S_BOOK = 2048  # E = S of phases 15 and 16 (bench.py:183)
 ETC1S_INDEX_BYTES = 2  # a uint16 index, read once by the launch
 ETC1S_REPLACES = "basisu_rs_tpu/ops/etc1s_pallas.py:230"
+T1_REPLACES = "tools/ablate_bc7.py:58"
+T1_BLOCK_BYTES = 20  # a stage kernel reads a 16-byte block and writes a 4-byte checksum
+T1_BIG = 1 << 23  # phase 19's second size, blocks a mode: far above the launch floor
+PROBE_REPLACES = "tests/test_pbits.py:73, tests/test_tpu_hardware.py:80"
+PROBE_N = 1 << 16
+PROBE_BYTES = 8  # an int32 in, a float32 out
+CORPUS_SIZES = ((6, 1024), (6, 2048), (24, 2048))  # (textures, width): ~2^19, ~2^21, ~2^23 blocks
+ETC1S_FILES, ETC1S_FILE_SLICES = 64, 2  # phase 20: 64 files x 2 slices x 65,536 blocks = 2^23
+PIPE_UASTC, PIPE_ETC1S, PIPE_WIDTH = 64, 16, 1024  # phase 21's corpus
 
 
 def require(cond, msg: str) -> None:
@@ -113,23 +154,9 @@ def card_facts() -> str:
 
 
 def times_ms(fn, reps: int = REPS, preload: bool = False) -> list:
-    """fn's time between two CUDA events, in ms, for each of `reps` runs.
-
-    As called (preload=False) the events also span the GPU's wait for the
-    host to enqueue fn's launches, which is what a caller sees.  With
-    preload=True a sleep kernel holds the stream while fn enqueues, so the
-    events span only the device's own time for fn's kernels."""
-    times = []
-    for _ in range(reps):
-        if preload:
-            torch.cuda._sleep(PRELOAD_CYCLES)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return times
+    """fn's time between two CUDA events, in ms, for each of `reps` runs: as
+    called, or with preload=True the device's own time (event_times_ms)."""
+    return event_times_ms(fn, reps, preload=preload)
 
 
 def median_ms(fn, reps: int = REPS, preload: bool = False) -> float:
@@ -390,6 +417,381 @@ def etc1s_file_path(etc1s, basis, readers, dev, card: str, endpoints, selectors,
           f"through read_to_rgba/read_to_etc1 [{card}]")
 
 
+def probe_phase(dev, card: str) -> dict:
+    """Phase 17: the fl_div255 probe P on the card."""
+    from basisu_rs_tpu_torch.ops import fl_div255_probe as probe
+
+    x = torch.arange(PROBE_N, dtype=torch.int32, device=dev)
+    p = probe.fl_div255
+    p(x)  # warm-up
+    torch.cuda.synchronize()
+    p.launches = p.plain_calls = 0
+    small, full = p(x[:256]), p(x)
+    torch.cuda.synchronize()
+    launches, plain_calls = p.launches, p.plain_calls
+    require(launches == 2 and plain_calls == 0, f"probe launches {launches}, plain calls {plain_calls}")
+    ieee = np.arange(256, dtype=np.float32) / np.float32(255)
+    got = small.cpu().numpy()
+    require(np.array_equal(got.view(np.int32), ieee.view(np.int32)), "fl_div255 on the card differs from IEEE x/255")
+    plain = probe.plain(x[:256]).cpu().numpy()
+    require(np.array_equal(plain.view(np.int32), ieee.view(np.int32)), "the plain probe on the card is not IEEE x/255")
+    got_full = full.cpu().numpy().view(np.int32)
+    formula = probe.two_roundings_np(np.arange(PROBE_N)).view(np.int32)
+    require(np.array_equal(got_full, formula), "fl_div255 on the card differs from the two-roundings formula")
+    n_ieee = int((got_full != (np.arange(PROBE_N, dtype=np.float32) / np.float32(255)).view(np.int32)).sum())
+    # a 0-dim tensor divisor: with a Python scalar, CUDA multiplies by its reciprocal
+    t255 = torch.tensor(255.0, device=dev)
+    library = torch.div(x[:256], t255).cpu().numpy()
+    require(np.array_equal(library.view(np.int32), ieee.view(np.int32)),
+            "torch.div(x, torch.tensor(255.0)) is not IEEE x/255")
+    by_scalar = torch.div(x[:256], 255.0).cpu().numpy()
+    print(f"phase 17 probe record [{card}]: torch.div(x, 255.0) with a Python scalar differs from IEEE x/255 at "
+          f"{int((by_scalar.view(np.int32) != ieee.view(np.int32)).sum())} of x = 0..255")
+    out = torch.empty_like(full)
+    ms = median_ms(lambda: p(x, out), preload=True)
+    plain_ms = median_ms(lambda: probe.plain(x))
+    library_ms = median_ms(lambda: torch.div(x, t255))
+    bound = PROBE_N * PROBE_BYTES / HBM_BYTES_PER_S * 1e3
+    print(f"phase 17 probe [{card}]: fl_div255 on the card == IEEE x/255 for x = 0..255 (tolerance 0, max abs "
+          f"err 0); launches {launches}, plain-version calls 0")
+    print(f"phase 17 probe record [{card}]: x = 0..{PROBE_N - 1}: equal to the two-roundings formula everywhere; "
+          f"{n_ieee} of {PROBE_N} values differ from IEEE x/255 (the identity is claimed for 0..255 only)")
+    print(f"phase 17 probe time [{card}]: {PROBE_N} values, device time {ms:.4f} ms; HBM bound {bound:.6f} ms "
+          f"({PROBE_BYTES} B a value); plain x.float() / 255 {plain_ms:.4f} ms, one "
+          f"torch.div(x, torch.tensor(255.0)) {library_ms:.4f} ms (as called, median of {REPS})")
+    return dict(launches=launches, max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound)
+
+
+def stages_vs_plain(bc7_stages, dev, card: str, lut, golden_in) -> None:
+    """Phase 18: every T1 kernel against its plain version on the card, on
+    golden and seeded random blocks (invalid patterns included)."""
+    rng = np.random.default_rng(SEED + 2)
+    bc7_stages.reset_counts()
+    for m in range(19):
+        blocks = torch.from_numpy(mode_blocks(rng, lut, golden_in, m)).to(dev)
+        stages = [s for s in bc7_stages.STAGES if m in bc7_stages.STAGE_MODES[s]]
+        for stage in stages:
+            k_out = bc7_stages.stage_kernel(m, stage)(blocks)
+            p_out = torch.empty_like(k_out)
+            bc7_stages.stage_rows(m, stage, blocks, p_out)
+            torch.cuda.synchronize()
+            diff = int((k_out.to(torch.int64) - p_out.to(torch.int64)).abs().max())
+            require(diff == 0, f"T1 mode {m} {stage}: kernel differs from the plain version ({diff})")
+        print(f"phase 18 T1 mode {m:2d}: {blocks.shape[0]} blocks, kernel == plain for {', '.join(stages)} "
+              f"(tolerance 0, max abs err 0) [{card}]")
+    plain_calls = sum(bc7_stages.plain_call_counts().values())
+    require(plain_calls == 0, f"plain version called through the T1 wrappers on the card: {plain_calls}")
+
+
+def stages_timing(bc7_stages, kernels, dev, card: str, k1_mode_ms: dict, k1_counts, golden_in,
+                  golden_bc7) -> dict:
+    """Phase 19: the T1 tool over all 19 modes at its own input (the golden
+    blocks tiled 4096 times, split by mode), each kernel held against its
+    plain version on the blocks it was timed on; then, for each mode, every
+    stage and K1 timed on the same T1_BIG blocks of that mode, a size at
+    which the launch floor no longer hides the split of K1's time."""
+    from basisu_rs_tpu_torch.ops.dispatch import block_modes
+    from basisu_rs_tpu_torch.tools import ablate_bc7
+
+    inputs = ablate_bc7.mode_blocks(range(19), dev)
+    bc7_stages.reset_counts()
+    res = ablate_bc7.run(range(19), dev, log=lambda line: print(f"phase 19 [{card}] {line}"), inputs=inputs)
+    torch.cuda.synchronize()
+    launches, plain_calls = bc7_stages.launch_counts(), bc7_stages.plain_call_counts()
+    require(all(launches[k] > 0 for k in launches), "a T1 kernel was not launched by the tool")
+    require(sum(plain_calls.values()) == 0, f"plain version called in the tool's run: {plain_calls}")
+    for (m, stage), r in res.items():
+        p_out = torch.empty_like(r["out"])
+        bc7_stages.stage_rows(m, stage, inputs[m], p_out)
+        diff = int((r.pop("out").to(torch.int64) - p_out.to(torch.int64)).abs().max())
+        require(diff == 0, f"T1 mode {m} {stage}: the timed launch differs from the plain version ({diff})")
+        r["max_abs_err"] = diff
+        r["plain_ms"] = median_ms(lambda m=m, stage=stage, p_out=p_out: bc7_stages.stage_rows(m, stage, inputs[m],
+                                                                                              p_out), 3)
+        r["launches"] = launches[(m, stage)]
+    print(f"phase 19 [{card}]: the checksums of each of the {len(res)} timed launches == the plain version on the "
+          f"same blocks (tolerance 0, max abs err 0); launches per kernel {sorted(set(launches.values()))}, "
+          f"plain-version calls 0")
+    print(f"phase 19 plain [{card}]: " + "; ".join(f"{m}/{s} {r['plain_ms']:.2f} ms" for (m, s), r in res.items())
+          + " (plain stage versions on the card at the tool's inputs, as called, median of 3)")
+    del inputs
+
+    golden = torch.from_numpy(golden_in).to(dev)
+    golden_out, golden_modes = torch.from_numpy(golden_bc7).to(dev), block_modes(golden)
+    for m in range(19):
+        small, small_out = golden[golden_modes == m], golden_out[golden_modes == m]
+        reps = -(-T1_BIG // small.shape[0])
+        blocks = small.repeat(reps, 1)[:T1_BIG]
+        big = ablate_bc7.run([m], dev, log=lambda line: print(f"phase 19 {T1_BIG} a mode [{card}] {line}"),
+                             inputs={m: blocks})
+        for stage, r in ((s, big[(m, s)]) for s in bc7_stages.STAGES if (m, s) in big):
+            p_small = torch.empty(small.shape[0], dtype=torch.int32, device=dev)
+            bc7_stages.stage_rows(m, stage, small, p_small)  # rows are independent: tile the plain checksums
+            require(bool(torch.equal(r.pop("out"), p_small.repeat(reps)[:T1_BIG])),
+                    f"T1 mode {m} {stage} at {T1_BIG} blocks differs from the plain version")
+        k1 = kernels.mode_kernel("bc7", m)
+        k_out = torch.empty(T1_BIG, 16, dtype=torch.uint8, device=dev)
+        k_err = torch.empty(T1_BIG, dtype=torch.bool, device=dev)
+        k1(blocks, None, k_out, k_err)  # warm-up
+        k1_big_ms = median_ms(lambda: k1(blocks, None, k_out, k_err), preload=True)
+        require(bool(torch.equal(k_out, small_out.repeat(reps, 1)[:T1_BIG])) and not bool(k_err.any()),
+                f"K1 mode {m} at {T1_BIG} blocks differs from the golden outputs")
+        del blocks, k_out, k_err
+        full_ms = big[(m, "full")]["ms"]
+        print(f"phase 19 mode {m:2d} [{card}]: on the same {T1_BIG} blocks (checksums == plain, K1 == golden, "
+              f"tolerance 0): K1 {k1_big_ms:.4f} ms = {T1_BIG / k1_big_ms / 1e3:.1f} Mblocks/s, T1 full "
+              f"{full_ms:.4f} ms ({100 * full_ms / k1_big_ms:.0f}% of K1); stage time as a share of full: "
+              + ", ".join(f"{s} {100 * big[(m, s)]['ms'] / full_ms:.0f}%" for s in bc7_stages.STAGES
+                          if s != "full" and (m, s) in big)
+              + f"; at the tool's input T1 full {res[(m, 'full')]['ms']:.4f} ms over {res[(m, 'full')]['blocks']} "
+              f"blocks; K1 in phase 5 {k1_mode_ms[m]:.4f} ms over {k1_counts[m]} indexed blocks")
+    torch.cuda.empty_cache()
+    return res
+
+
+def mip_slices(blocks: np.ndarray, textures: int, width: int, first: int = 0) -> list:
+    """Mip chains of `textures` square textures of `width` texels, level 0
+    down to 4x4 texels, cut in order from blocks[first:]: a list of
+    (level, blocks a side, uint8 [n, 16] view) per slice."""
+    out, ofs = [], first
+    for _ in range(textures):
+        w, lvl = width, 0
+        while w >= 4:
+            nb = w // 4
+            out.append((lvl, nb, blocks[ofs: ofs + nb * nb]))
+            ofs += nb * nb
+            w, lvl = w // 2, lvl + 1
+    return out
+
+
+def corpus_phase(dev, card: str, full_np, full, kernels, etc1s) -> None:
+    """Phase 20: the corpus transcoders at full size."""
+    from basisu_rs_tpu_torch import transcode_uastc_blocks
+    from basisu_rs_tpu_torch.models import (
+        CorpusTranscoder,
+        Etc1sCorpusTranscoder,
+        Etc1sFileWork,
+        Etc1sMultiCorpusTranscoder,
+        UastcTranscoder,
+    )
+    from basisu_rs_tpu_torch.models.transcoder import MAX_BATCH_CODEBOOK_ENTRIES, to_host
+
+    textures, width = CORPUS_SIZES[-1]
+    slices = [s for _, _, s in mip_slices(full_np, textures, width)]
+    total = sum(len(s) for s in slices)
+    ends = np.cumsum([0] + [len(s) for s in slices]).tolist()
+    for t in ("bc7", "rgba"):
+        ref = to_host(transcode_uastc_blocks(full[:total], t)[0])
+        kernels.reset_counts()
+        outs = CorpusTranscoder(t).transcode_slices(slices)
+        n_launch = sum(kernels.launch_counts()[t])
+        plain_calls = sum(sum(c) for c in kernels.plain_call_counts().values())
+        require(n_launch <= 19 and plain_calls == 0, f"corpus {t}: {n_launch} launches, {plain_calls} plain calls")
+        require(all(np.array_equal(o, ref[a:b]) for o, a, b in zip(outs, ends, ends[1:])),
+                f"corpus {t}: a slice differs from transcode_uastc_blocks")
+        tr = UastcTranscoder(t)
+        kernels.reset_counts()
+        out, err = tr.transcode_async(full_np[:total]).gather()
+        n_async = sum(kernels.launch_counts()[t])
+        require(n_async <= 19 and np.array_equal(out, ref) and not err.any(), f"transcode_async {t} differs")
+        print(f"phase 20 corpus {t} [{card}]: {len(slices)} mip slices of {textures} {width}x{width} textures, {total} blocks, "
+              f"CorpusTranscoder and transcode_async + gather bit-exact vs transcode_uastc_blocks; launches "
+              f"{n_launch} and {n_async} a call; plain-version calls 0")
+        del ref, outs, out
+
+    for textures, width in CORPUS_SIZES:
+        sl = [s for _, _, s in mip_slices(full_np, textures, width)]
+        n = sum(len(s) for s in sl)
+        ct = CorpusTranscoder("bc7")
+        ct.transcode_slices(sl)  # warm-up
+        ct.inner.profiler.stats.clear()
+        ms = host_ms(lambda: ct.transcode_slices(sl))
+        st = ct.profiler.stats
+        split = ", ".join(f"{k} {1e3 * v.seconds / v.calls:.2f}" for k, v in sorted(st.items()))
+        tr = UastcTranscoder("bc7")
+        dev_ms = host_ms(lambda: tr.transcode_async(full[:n]))
+        print(f"phase 20 corpus scaling bc7 [{card}]: {textures} textures of {width}x{width}, {n} blocks: "
+              f"transcode_slices {ms:.2f} ms = {mtex(n, ms):.1f} Mtexels/s (host clock + sync, median of "
+              f"{FILE_REPS}; profiler stages, ms a call: {split}); device-resident transcode_async {dev_ms:.2f} ms "
+              f"= {mtex(n, dev_ms):.1f} Mtexels/s")
+
+    rng = np.random.default_rng(SEED + 3)
+    per_slice = N_FULL // (ETC1S_FILES * ETC1S_FILE_SLICES)
+    files = []
+    for _ in range(ETC1S_FILES):
+        ep, sel = etc1s_codebooks(rng, ETC1S_BOOK, ETC1S_BOOK)
+        files.append(Etc1sFileWork(ep, sel, [(rng.integers(0, ETC1S_BOOK, per_slice).astype(np.int32),
+                                              rng.integers(0, ETC1S_BOOK, per_slice).astype(np.int32))
+                                             for _ in range(ETC1S_FILE_SLICES)]))
+    for t in ("rgba", "etc1"):
+        multi = Etc1sMultiCorpusTranscoder(t)
+        multi.transcode_files(files[:1])  # warm-up
+        torch.cuda.synchronize()
+        etc1s.reset_counts()
+        got = multi.transcode_files(files)
+        launches, plain_calls = etc1s.launch_counts(), etc1s.plain_call_counts()
+        kind = "rgba" if t == "rgba" else "etc1"
+        groups = -(-ETC1S_FILES * ETC1S_BOOK // MAX_BATCH_CODEBOOK_ENTRIES)  # what the cap implies
+        require(launches == {k: groups * (k == kind) for k in etc1s.KINDS} and sum(plain_calls.values()) == 0,
+                f"ETC1S corpus {t}: launches {launches}, plain calls {plain_calls}")
+        per_file = [Etc1sCorpusTranscoder(fw.endpoints, fw.selectors, t).transcode_slices(fw.slices) for fw in files]
+        require(all(np.array_equal(g, w) for gs, ws in zip(got, per_file) for g, w in zip(gs, ws)),
+                f"ETC1S corpus {t}: multi-file output differs from per-file runs")
+        multi_ms = host_ms(lambda: multi.transcode_files(files))
+        per_ms = host_ms(lambda: [Etc1sCorpusTranscoder(fw.endpoints, fw.selectors, t).transcode_slices(fw.slices)
+                                  for fw in files])
+        line = (f"phase 20 etc1s corpus {t} [{card}]: {ETC1S_FILES} files of {ETC1S_BOOK}-entry codebooks, {N_FULL} "
+                f"blocks, bit-exact vs per-file Etc1sCorpusTranscoder; launches {launches[kind]} (cap "
+                f"{MAX_BATCH_CODEBOOK_ENTRIES} entries); plain-version calls 0; multi-file {multi_ms:.2f} ms = {mtex(N_FULL, multi_ms):.1f} "
+                f"Mtexels/s, {ETC1S_FILES} per-file calls {per_ms:.2f} ms (host clock + sync, median of {FILE_REPS})")
+        if t == "rgba":
+            res = multi.transcode_files(files, resident=True)
+            require(all(d.device == dev and np.array_equal(to_host(d), g)
+                        for ds, gs in zip(res, got) for d, g in zip(ds, gs)), "resident ETC1S corpus differs")
+            res_ms = host_ms(lambda: multi.transcode_files(files, resident=True))
+            line += f"; resident=True bit-exact, {res_ms:.2f} ms = {mtex(N_FULL, res_ms):.1f} Mtexels/s"
+            del res
+        print(line)
+        del got, per_file
+    torch.cuda.empty_cache()
+
+
+def pipeline_phase(dev, card: str, full_np, endpoints, selectors, read_to_rgba, basis) -> None:
+    """Phase 21: the corpus pipeline over files on disk."""
+    import tempfile
+
+    from basisu_rs_tpu_torch.container.writer import write_etc1s_basis, write_uastc_basis
+    from basisu_rs_tpu_torch.models import BasisCorpusPipeline, PipelineState
+
+    rng = np.random.default_rng(SEED + 4)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_") as tmp:
+        t0 = time.perf_counter()
+        paths = []
+        ofs = 0
+        for f in range(PIPE_UASTC):
+            chain = mip_slices(full_np, 1, PIPE_WIDTH, ofs)
+            ofs += sum(len(s) for _, _, s in chain)
+            buf = write_uastc_basis([dict(blocks=s, nbx=nb, nby=nb, orig_width=4 * nb, orig_height=4 * nb,
+                                          image_index=0, level_index=lvl) for lvl, nb, s in chain])
+            paths.append(Path(tmp) / f"u{f:02d}.basis")
+            paths[-1].write_bytes(buf)
+        nb = PIPE_WIDTH // 4
+        for f in range(PIPE_ETC1S):
+            alpha = f % 2 == 1
+            sl = [dict(ep_idx=rng.integers(0, ETC1S_BOOK, nb * nb).astype(np.uint16),
+                       sel_idx=rng.integers(0, ETC1S_BOOK, nb * nb).astype(np.uint16), nbx=nb, nby=nb,
+                       orig_width=PIPE_WIDTH, orig_height=PIPE_WIDTH, alpha=a) for a in ((False, True) if alpha else (False,))]
+            paths.append(Path(tmp) / f"e{f:02d}.basis")
+            paths[-1].write_bytes(write_etc1s_basis(endpoints, selectors, sl, has_alpha=alpha))
+        corrupt = bytearray(paths[1].read_bytes())
+        corrupt[-100] ^= 0x01
+        bad = Path(tmp) / "corrupt.basis"
+        bad.write_bytes(bytes(corrupt))
+        paths.insert(40, bad)
+        nbytes = sum(p.stat().st_size for p in paths)
+        print(f"phase 21 corpus: {PIPE_UASTC} UASTC files ({PIPE_WIDTH}x{PIPE_WIDTH}, mips to 4x4), {PIPE_ETC1S} "
+              f"ETC1S files ({PIPE_ETC1S // 2} with alpha slices), 1 corrupt file, {nbytes} bytes, written in "
+              f"{time.perf_counter() - t0:.2f} s (host)")
+
+        def pipeline(workers):
+            pipe = BasisCorpusPipeline("rgba", workers=workers)
+            res = {r.path: r.images for r in pipe.run(paths)}
+            torch.cuda.synchronize()
+            return res, [(p, str(e)) for p, e in pipe.errors]
+
+        def inline():
+            res, errors = {}, []
+            for p in paths:
+                try:
+                    res[str(p)] = read_to_rgba(p.read_bytes())[1]
+                except basis.BasisError as e:
+                    errors.append((str(p), str(e)))
+            torch.cuda.synchronize()
+            return res, errors
+
+        runs = {"workers=1": lambda: pipeline(1), "workers=4": lambda: pipeline(4), "inline": inline}
+        ref = None
+        for name, fn in runs.items():
+            res, errors = fn()
+            require(errors == [(str(bad), "Data CRC16 failed")], f"pipeline {name}: errors {errors}")
+            require(len(res) == len(paths) - 1, f"pipeline {name}: {len(res)} files")
+            if ref is None:
+                ref = res
+            else:
+                for p, imgs in res.items():
+                    require(len(imgs) == len(ref[p]) and all(
+                        (a.w, a.h, a.stride) == (b.w, b.h, b.stride) and torch.equal(a.data, b.data)
+                        for a, b in zip(imgs, ref[p])), f"pipeline {name}: {p} differs")
+        texels = sum(int(i.w) * int(i.h) for imgs in ref.values() for i in imgs)
+        del ref, res
+        times = {name: host_ms(fn) for name, fn in runs.items()}
+        state = PipelineState()
+        first = [r.path for r in BasisCorpusPipeline("rgba").run(paths[:40], state)]
+        pipe = BasisCorpusPipeline("rgba")
+        rest = [r.path for r in pipe.run(paths, state)]
+        require(first == [str(p) for p in paths[:40]] and rest == [str(p) for p in paths[41:]]
+                and [p for p, _ in pipe.errors] == [str(bad)], "pipeline resume")
+        print(f"phase 21 pipeline [{card}]: {len(paths) - 1} files, images bit-exact across workers=1, workers=4 and "
+              f"inline read_to_rgba; the corrupt file in errors as 'Data CRC16 failed'; resume after 40 files "
+              f"yields the other {len(rest)} and skips the 40")
+        print(f"phase 21 pipeline time [{card}] (host clock + sync, median of {FILE_REPS}, {texels} texels): "
+              + ", ".join(f"{k} {v:.1f} ms = {texels / v / 1e3:.1f} Mtexels/s" for k, v in times.items()))
+        torch.cuda.empty_cache()
+
+
+def cli_phase(card: str, full_np, endpoints, selectors) -> None:
+    """Phase 22: the CLI on the card."""
+    import contextlib
+    import io
+    import tempfile
+
+    from basisu_rs_tpu_torch import read_to_bc7, read_to_etc2, read_to_rgba
+    from basisu_rs_tpu_torch.__main__ import main as cli_main
+    from basisu_rs_tpu_torch.container import basis, ktx, ktx2, png
+    from basisu_rs_tpu_torch.container.writer import write_uastc_basis
+
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "basisu_rs_tpu_torch", "selftest"], cwd=ROOT, capture_output=True,
+                         text=True, timeout=600)
+    selftest_s = time.perf_counter() - t0
+    expect = [f"{t}: OK ({len(np.load(FIXTURE)['bc7_in'])} blocks)" for t in ("rgba", "astc", "bc7", "etc1", "etc2")]
+    require(res.returncode == 0 and res.stdout.splitlines() == expect,
+            f"selftest rc {res.returncode}: {res.stdout} {res.stderr[-2000:]}")
+    print(f"phase 22 selftest [{card}]: `python -m basisu_rs_tpu_torch selftest` exit 0, all five targets OK, "
+          f"{selftest_s:.2f} s as a subprocess")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        chain = mip_slices(full_np, 1, PIPE_WIDTH)
+        buf = write_uastc_basis([dict(blocks=s, nbx=nb, nby=nb, orig_width=4 * nb, orig_height=4 * nb,
+                                      image_index=0, level_index=lvl) for lvl, nb, s in chain])
+        src = Path(tmp) / "tex.basis"
+        src.write_bytes(buf)
+        with contextlib.redirect_stdout(io.StringIO()) as so:
+            require(cli_main(["info", str(src)]) == 0, "info failed")
+        info = json.loads(so.getvalue())
+        require(info["format"] == "UASTC4x4" and info["data_crc_ok"] and len(info["slices"]) == len(chain),
+                f"info: {info}")
+        descs = basis.read_slice_descs(buf, basis.read_header(buf))
+        cases = (("ktx2", "bc7", read_to_bc7, ktx2.write_ktx2), ("ktx", "etc2", read_to_etc2, ktx.write_ktx))
+        for container, target, reader, writer in cases:
+            out = Path(tmp) / container
+            with contextlib.redirect_stdout(io.StringIO()):
+                require(cli_main(["transcode", str(src), "--target", target, "--container", container, "-o",
+                                  str(out)]) == 0, f"transcode {container}")
+            (chain_imgs,) = ktx.group_mip_chains(reader(buf), descs)
+            require((out / f"tex_0.{target}.{container}").read_bytes() == writer(chain_imgs, target),
+                    f"transcode --container {container} differs from the writer")
+        out = Path(tmp) / "png"
+        with contextlib.redirect_stdout(io.StringIO()):
+            require(cli_main(["transcode", str(src), "--target", "rgba", "--container", "png", "-o", str(out)]) == 0,
+                    "transcode png")
+        images = read_to_rgba(buf)[1]
+        require(all((out / f"tex_{i}.png").read_bytes() == png.write_png(img) for i, img in enumerate(images)),
+                "transcode --container png differs from write_png")
+    print(f"phase 22 cli [{card}]: info JSON of a {len(chain)}-level file; transcode --container ktx2 (bc7), ktx "
+          f"(etc2) and png (rgba, {len(images)} files) byte-equal to the writers applied to the readers' output")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card")
@@ -409,8 +811,8 @@ def main() -> int:
     )
     from basisu_rs_tpu_torch.container import basis
     from basisu_rs_tpu_torch.container.writer import write_uastc_basis
-    from basisu_rs_tpu_torch.ops import build, etc1s, kernels
-    from basisu_rs_tpu_torch.ops.dispatch import block_modes, transcode_blocks
+    from basisu_rs_tpu_torch.ops import bc7_stages, build, etc1s, kernels
+    from basisu_rs_tpu_torch.ops.dispatch import block_modes, partition, transcode_blocks
     from basisu_rs_tpu_torch.tables import INVALID_MODE, MODES, np_tables
 
     dev = torch.device("cuda", 0)
@@ -448,7 +850,19 @@ def main() -> int:
         r = ptxas[("etc1s", kind)]
         print(f"  ptxas etc1s_kernel<{etc1s.KINDS.index(kind)}> ({kind}): {r['registers']} registers, {r['stack']} B "
               f"stack, {r['spill_stores']} B spill stores, {r['spill_loads']} B spill loads")
-    require(len(ptxas) == 99, f"ptxas reports {len(ptxas)} kernels, expected 99")
+    for stage in bc7_stages.STAGES:
+        for m in bc7_stages.STAGE_MODES[stage]:
+            key = (f"bc7_stage/{stage}", m)
+            require(key in ptxas and "registers" in ptxas[key], f"no ptxas report for T1 {stage} mode {m}")
+            r = ptxas[key]
+            print(f"  ptxas bc7_stage_kernel<{m}, {bc7_stages.STAGES.index(stage)}> ({stage}): {r['registers']} "
+                  f"registers, {r['stack']} B stack, {r['spill_stores']} B spill stores, {r['spill_loads']} B spill "
+                  f"loads")
+    r = ptxas.get(("probe", "fl_div255"), {})
+    require("registers" in r, "no ptxas report for the fl_div255 probe")
+    print(f"  ptxas fl_div255_probe_kernel: {r['registers']} registers, {r['stack']} B stack, {r['spill_stores']} B "
+          f"spill stores, {r['spill_loads']} B spill loads")
+    require(len(ptxas) == 193, f"ptxas reports {len(ptxas)} kernels, expected 193")
     print("phase 2 ptxas json " + json.dumps({f"{t}/{m}": v for (t, m), v in sorted(ptxas.items(), key=str)}))
 
     golden = np.load(FIXTURE)
@@ -512,9 +926,7 @@ def main() -> int:
     full_np = np.tile(golden_in, (reps, 1))[:N_FULL]
     full = torch.from_numpy(full_np).to(dev)
     expected_np = {t: np.tile(golden_out[t], (reps, 1))[:N_FULL] for t in TARGETS}
-    modes = block_modes(full)
-    order = torch.argsort(modes, stable=True)
-    counts = torch.bincount(modes, minlength=INVALID_MODE + 1).tolist()
+    order, counts = partition(full)
     starts = np.concatenate([[0], np.cumsum(counts)]).tolist()
     groups = {m: order[starts[m] : starts[m + 1]] for m in range(19) if counts[m]}
     results = {}
@@ -568,9 +980,7 @@ def main() -> int:
         require(bool(torch.equal(p_out, expected)), f"{t} plain version at full size differs from golden")
 
         def plain_path():
-            pm = block_modes(full)
-            po = torch.argsort(pm, stable=True)
-            pc = torch.bincount(pm, minlength=INVALID_MODE + 1).tolist()
+            po, pc = partition(full)
             s = 0
             for m, c in enumerate(pc):
                 if c:
@@ -747,6 +1157,23 @@ def main() -> int:
     etc1s_results = etc1s_main_path(etc1s, dev, card, endpoints, selectors, idx)
     etc1s_file_path(etc1s, basis, {"rgba": lambda b: read_to_rgba(b)[1], "etc1": read_to_etc1}, dev, card,
                     endpoints, selectors, idx_np, idx)
+    del idx
+    torch.cuda.empty_cache()
+
+    # ---- phases 17-22: P, T1, the corpus layer and the CLI ---------------------
+    def timed(phase: int, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        print(f"phase {phase} took {time.perf_counter() - t0:.2f} s")
+        return out
+
+    probe = timed(17, lambda: probe_phase(dev, card))
+    timed(18, lambda: stages_vs_plain(bc7_stages, dev, card, lut, golden_in))
+    t1 = timed(19, lambda: stages_timing(bc7_stages, kernels, dev, card, results["bc7"]["mode_ms"], counts,
+                                         golden_in, golden_out["bc7"]))
+    timed(20, lambda: corpus_phase(dev, card, full_np, full, kernels, etc1s))
+    timed(21, lambda: pipeline_phase(dev, card, full_np, endpoints, selectors, read_to_rgba, basis))
+    timed(22, lambda: cli_phase(card, full_np, endpoints, selectors))
 
     result = {
         "kernels": [
@@ -781,6 +1208,32 @@ def main() -> int:
                 "library_ms": None,
             }
             for kind in etc1s.KINDS
+        ]
+        + [
+            {
+                "name": f"bc7_stage_kernel<{m}, {bc7_stages.STAGES.index(stage)}> ({stage})",
+                "route": "cuda",
+                "source": "basisu_rs_tpu_torch/csrc/uastc_bc7_stages.cu",
+                "replaces": T1_REPLACES,
+                "launches": r["launches"],
+                "max_abs_err": r["max_abs_err"],
+                "ms": r["ms"],
+                "plain_ms": r["plain_ms"],
+                "bound_ms": r["blocks"] * T1_BLOCK_BYTES / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes",
+                "library_ms": None,
+            }
+            for (m, stage), r in t1.items()
+        ]
+        + [
+            {
+                "name": "fl_div255_probe_kernel",
+                "route": "cuda",
+                "source": "basisu_rs_tpu_torch/csrc/fl_div255_probe.cu",
+                "replaces": PROBE_REPLACES,
+                "bound_by": "bytes",
+                **probe,
+            }
         ]
     }
     print(json.dumps(result))

@@ -1,11 +1,12 @@
 """PyTorch port: the kernels' own per-block sources, compiled for the host.
 
 `basisu_rs_tpu_torch/csrc/uastc_{bc7,astc,rgba,etc}.cuh` (over the shared
-`uastc_decode.cuh`) and `csrc/etc1s.cuh` hold the per-block logic of K1-K9
-behind a macro shim, so g++ builds the exact code the CUDA kernels run.
-This test builds them into a temporary directory, calls them over ctypes
-and holds every mode and ETC1S kind against the plain PyTorch versions
-(tolerance 0): shift, signedness and
+`uastc_decode.cuh`), `csrc/etc1s.cuh` and `csrc/uastc_bc7_stages.cuh` hold
+the per-block logic of K1-K9 and T1 behind a macro shim, so g++ builds the
+exact code the CUDA kernels run (the probe P evaluates `ub::fl_div255` of
+`uastc_decode.cuh`).  This test builds them into a temporary directory,
+calls them over ctypes and holds every mode, ETC1S kind and (mode, stage)
+against the plain PyTorch versions (tolerance 0): shift, signedness and
 table-index faults show here without a card.  The package never loads this
 build; it skips only when g++ is absent.  The last test checks the ptxas
 report parser of `ops/build.py` on a canned nvcc log."""
@@ -19,7 +20,7 @@ import pytest
 import torch
 
 from basisu_rs_tpu.tables import np_tables
-from basisu_rs_tpu_torch.ops import build, etc1s, kernels
+from basisu_rs_tpu_torch.ops import bc7_stages, build, etc1s, fl_div255_probe, kernels
 from torch_cases import bias_reference, eac_reference_selectors, etc1_selector_cases, etc1s_inputs
 
 HOST_ENTRY = r"""
@@ -27,6 +28,7 @@ HOST_ENTRY = r"""
 #include "etc1s.cuh"
 #include "uastc_astc.cuh"
 #include "uastc_bc7.cuh"
+#include "uastc_bc7_stages.cuh"
 #include "uastc_etc.cuh"
 #include "uastc_rgba.cuh"
 
@@ -75,6 +77,33 @@ extern "C" void uastc_host(int target, int mode, const uint8_t* in, long long n,
 }
 
 extern "C" float fl_div255_host(int x) { return ub::fl_div255(x); }
+
+// T1: bc7_stage<M, S> over n blocks, as bc7_stage_kernel<M, S> computes each
+template <int M, int S>
+static void stage_run(const uint8_t* in, long long n, uint32_t* out) {
+  for (long long t = 0; t < n; ++t) {
+    uint32_t l[4];
+    memcpy(l, in + 16 * t, 16);
+    out[t] = ub::bc7_stage<M, S>(l);
+  }
+}
+typedef void (*StageFn)(const uint8_t*, long long, uint32_t*);
+template <int M, int S>
+static StageFn stage_fn() {
+  if constexpr (ub::kStageExists<M, S>) return stage_run<M, S>;
+  else return nullptr;
+}
+#define STAGE_ROW(M) {stage_fn<M, 0>(), stage_fn<M, 1>(), stage_fn<M, 2>(), stage_fn<M, 3>(), stage_fn<M, 4>()}
+static const StageFn kStage[19][5] = {STAGE_ROW(0),  STAGE_ROW(1),  STAGE_ROW(2),  STAGE_ROW(3),  STAGE_ROW(4),
+                                      STAGE_ROW(5),  STAGE_ROW(6),  STAGE_ROW(7),  STAGE_ROW(8),  STAGE_ROW(9),
+                                      STAGE_ROW(10), STAGE_ROW(11), STAGE_ROW(12), STAGE_ROW(13), STAGE_ROW(14),
+                                      STAGE_ROW(15), STAGE_ROW(16), STAGE_ROW(17), STAGE_ROW(18)};
+// returns 0, or -1 for a pair that is not instantiated
+extern "C" int bc7_stage_host(int mode, int stage, const uint8_t* in, long long n, uint32_t* out) {
+  if (kStage[mode][stage] == nullptr) return -1;
+  kStage[mode][stage](in, n, out);
+  return 0;
+}
 
 // The ETC pieces, batched for the exhaustive pins below.
 // EAC selector of every (centre, alpha) in 0..255 for one table and multiplier.
@@ -153,6 +182,8 @@ def host_lib(tmp_path_factory):
                                ctypes.c_void_p, ctypes.c_void_p]
     lib.fl_div255_host.restype = ctypes.c_float
     lib.fl_div255_host.argtypes = [ctypes.c_int]
+    lib.bc7_stage_host.restype = ctypes.c_int
+    lib.bc7_stage_host.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
     i, p = ctypes.c_int, ctypes.c_void_p
     for name, args in (("eac_selectors_host", [i, i, p]), ("etc1_selectors_host", [p, p, i, p]),
                        ("subblock_averages_host", [i, i, p]), ("apply_bias_host", [i, i, i, i, p]),
@@ -212,6 +243,33 @@ def test_host_fl_div255_exhaustive(host_lib):
     got = np.array([host_lib.fl_div255_host(x) for x in range(256)], np.float32)
     expect = (np.arange(256, dtype=np.float32) / np.float32(255.0)).astype(np.float32)
     np.testing.assert_array_equal(got.view(np.uint32), expect.view(np.uint32))
+
+
+@pytest.mark.parametrize("stage", bc7_stages.STAGES)
+@pytest.mark.parametrize("mode", range(19))
+def test_host_build_bc7_stages_match_plain(host_lib, golden, mode, stage):
+    # csrc/uastc_bc7_stages.cuh (T1) as the kernels run it, against the plain stages
+    blocks = _mode_blocks(golden, mode, 1024)
+    out = np.zeros(len(blocks), np.uint32)
+    rc = host_lib.bc7_stage_host(mode, bc7_stages.STAGES.index(stage), blocks.ctypes.data, len(blocks),
+                                 out.ctypes.data)
+    if mode not in bc7_stages.STAGE_MODES[stage]:
+        assert rc == -1
+        return
+    assert rc == 0
+    expect = bc7_stages.stage_kernel(mode, stage)(torch.from_numpy(blocks)).numpy().view(np.uint32)
+    bad = np.nonzero(out != expect)[0]
+    assert bad.size == 0, f"mode {mode} {stage}: {bad.size} blocks differ; first {blocks[bad[0]].tolist()}"
+
+
+def test_host_fl_div255_probe_body(host_lib):
+    # the probe's body: equal to its plain version (IEEE x/255) on 0..255,
+    # and to the two-roundings formula on 0..65535, what the card must print
+    x = np.arange(1 << 16, dtype=np.int32)
+    got = np.array([host_lib.fl_div255_host(int(v)) for v in x], np.float32)
+    plain = fl_div255_probe.fl_div255(torch.from_numpy(x[:256])).numpy()
+    np.testing.assert_array_equal(got[:256].view(np.int32), plain.view(np.int32))
+    np.testing.assert_array_equal(got.view(np.int32), fl_div255_probe.two_roundings_np(x).view(np.int32))
 
 
 def test_host_eac_selector_exhaustive(host_lib):

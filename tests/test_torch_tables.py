@@ -39,15 +39,19 @@ def test_import_leaves_jax_out():
         "print(sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')) or 'no-jax')\n"
         "print(under or 'none-under-jax-package')\n"
         "print(len([k for k in sys.modules if k.startswith('basisu_rs_tpu_torch.')]))\n"
+        "print(all(k in sys.modules for k in ('basisu_rs_tpu_torch.__main__',\n"
+        "                                     'basisu_rs_tpu_torch.tools.ablate_bc7')))\n"
     )
     res = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert res.returncode == 0, res.stderr
-    jax_mods, under, n_port = res.stdout.split("\n")[:3]
+    # importing the CLI and the T1 tool runs nothing: the four lines above are all the output
+    jax_mods, under, n_port, entry_points = res.stdout.splitlines()
     assert jax_mods == "no-jax"
     assert under == "none-under-jax-package"
-    assert int(n_port) >= 27  # every module of the port was imported
+    assert int(n_port) >= 39  # every module of the port was imported
+    assert entry_points == "True"
 
 
 def test_header_matches_generator():
