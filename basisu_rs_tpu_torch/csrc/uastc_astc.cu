@@ -39,3 +39,7 @@ extern "C" int uastc_astc_launch(int mode, const void* in, const void* index, in
                                  void* err, void* stream) {
   return ub::launch<Astc>(mode, in, index, n, out, err, stream);
 }
+
+// Warps of mode `mode`'s kernel resident on one SM into *warps; see
+// ub::resident_warps.
+extern "C" int uastc_astc_warps(int mode, int* warps) { return ub::resident_warps<Astc>(mode, warps); }

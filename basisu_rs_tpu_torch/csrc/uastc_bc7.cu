@@ -43,3 +43,7 @@ extern "C" int uastc_bc7_launch(int mode, const void* in, const void* index, int
                                 void* err, void* stream) {
   return ub::launch<Bc7>(mode, in, index, n, out, err, stream);
 }
+
+// Warps of mode `mode`'s kernel resident on one SM into *warps; see
+// ub::resident_warps.
+extern "C" int uastc_bc7_warps(int mode, int* warps) { return ub::resident_warps<Bc7>(mode, warps); }

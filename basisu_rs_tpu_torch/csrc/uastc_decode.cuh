@@ -217,24 +217,27 @@ UB_FN void decode_endpoints(const uint32_t (&l)[4], int32_t (&ep)[Mode<M>::endpo
   for (int i = 0; i < E; ++i) ep[i] = unquant_endpoint<Mode<M>::range>(tq[i], bits[i]);
 }
 
-// Raw quantized weights in decode order (k = planes*i + plane); anchor
-// texels are stored with one less bit.
+// The pattern's packed anchors-before counts (2 bits a texel) that
+// texel_weight reads in the multi-subset modes; 0 in the others.
 template <int M>
-UB_FN void decode_weights(const uint32_t (&l)[4], int32_t pat,
-                          uint32_t (&w)[16 * Mode<M>::planes]) {
+UB_FN uint32_t weight_anchors(int32_t pat) {
+  using C = Mode<M>;
+  if constexpr (C::multi) return UB_LDG(&FAM_ANCHORS_BEFORE_PACKED[Family<C::fam>::base + pat]);
+  else return 0u;
+}
+
+// Texel i's raw quantized weight of plane p (i, p compile-time after
+// unrolling); anchor texels are stored with one less bit.  abp:
+// weight_anchors<M>(pat).  A caller that reads each weight where it uses it
+// keeps no array of 16 x planes weights live.
+template <int M>
+UB_FN uint32_t texel_weight(const uint32_t (&l)[4], uint32_t abp, int i, int p) {
   using C = Mode<M>;
   constexpr int wb = C::weight_bits, planes = C::planes, base = C::ofs_weights;
   if constexpr (!C::multi) {
-    int ofs = base;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int bits_i = i == 0 ? wb - 1 : wb;
-#pragma unroll
-      for (int p = 0; p < planes; ++p) {
-        w[planes * i + p] = extract(l, ofs, bits_i);
-        ofs += bits_i;
-      }
-    }
+    // texel 0, the only anchor, has planes fields of wb - 1 bits
+    return i == 0 ? extract(l, base + p * (wb - 1), wb - 1)
+                  : extract(l, base + planes * (wb - 1) + planes * wb * (i - 1) + p * wb, wb);
   } else {
     // Multi-subset modes are single-plane.  Texel i's bits lie in the static
     // window [base + wb*i - maxab_i, base + wb*i + wb), where ab_i is the
@@ -242,22 +245,31 @@ UB_FN void decode_weights(const uint32_t (&l)[4], int32_t pat,
     // small variable shift by (maxab_i - ab_i).
     static_assert(planes == 1, "multi-subset modes are single-plane");
     using F = Family<C::fam>;
-    const uint32_t abp = UB_LDG(&FAM_ANCHORS_BEFORE_PACKED[F::base + pat]);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int lo = (F::ab_min_packed >> (2 * i)) & 3, hi = (F::ab_max_packed >> (2 * i)) & 3;
-      const uint32_t ab = lo == hi ? static_cast<uint32_t>(lo) : (abp >> (2 * i)) & 3u;
-      uint32_t ab_next = F::n_anchors;
-      if (i < 15) {
-        const int lo2 = (F::ab_min_packed >> (2 * i + 2)) & 3;
-        const int hi2 = (F::ab_max_packed >> (2 * i + 2)) & 3;
-        ab_next = lo2 == hi2 ? static_cast<uint32_t>(lo2) : (abp >> (2 * i + 2)) & 3u;
-      }
-      const uint32_t wmask = mask(wb) >> (ab_next - ab);  // anchor: one bit less
-      const uint32_t raw = lo == hi ? extract(l, base + wb * i - lo, wb)
-                                    : extract(l, base + wb * i - hi, wb + hi) >> (hi - ab);
-      w[i] = raw & wmask;
+    const int lo = (F::ab_min_packed >> (2 * i)) & 3, hi = (F::ab_max_packed >> (2 * i)) & 3;
+    const uint32_t ab = lo == hi ? static_cast<uint32_t>(lo) : (abp >> (2 * i)) & 3u;
+    uint32_t ab_next = F::n_anchors;
+    if (i < 15) {
+      const int lo2 = (F::ab_min_packed >> (2 * i + 2)) & 3;
+      const int hi2 = (F::ab_max_packed >> (2 * i + 2)) & 3;
+      ab_next = lo2 == hi2 ? static_cast<uint32_t>(lo2) : (abp >> (2 * i + 2)) & 3u;
     }
+    const uint32_t wmask = mask(wb) >> (ab_next - ab);  // anchor: one bit less
+    const uint32_t raw = lo == hi ? extract(l, base + wb * i - lo, wb)
+                                  : extract(l, base + wb * i - hi, wb + hi) >> (hi - ab);
+    return raw & wmask;
+  }
+}
+
+// Raw quantized weights in decode order (k = planes*i + plane).
+template <int M>
+UB_FN void decode_weights(const uint32_t (&l)[4], int32_t pat,
+                          uint32_t (&w)[16 * Mode<M>::planes]) {
+  constexpr int planes = Mode<M>::planes;
+  const uint32_t abp = weight_anchors<M>(pat);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+#pragma unroll
+    for (int p = 0; p < planes; ++p) w[planes * i + p] = texel_weight<M>(l, abp, i, p);
   }
 }
 

@@ -5,7 +5,7 @@
 // Port of basisu_rs_tpu/ops/etc.py (uastc_to_etc1_mode, uastc_to_etc2_mode),
 // mirroring convert_block_from_uastc (reference:
 // src/target_formats/etc.rs:32-341).  The texels come from K3's decode
-// (for_each_texel in uastc_rgba.cuh); the plain PyTorch version is
+// (decode_block, texel_channels in uastc_rgba.cuh); the plain PyTorch version is
 // basisu_rs_tpu_torch/ops/etc.py.  Like the other .cuh files, this source
 // also compiles with g++ for the CPU tests.
 //
@@ -20,8 +20,12 @@
 //   - Two transposes: the ETC1 selector of texel u goes to pixel id
 //     (u%4)*4 + u/4, the EAC selector of texel i to pid = y*4 + x with
 //     x = i/4, y = i%4.
-//   - The 16 EAC selectors accumulate in one uint64_t 48-bit payload, so no
-//     field straddles a 32-bit word and no shift reaches 64.
+//   - The 16 three-bit EAC selectors of the 48-bit payload accumulate in
+//     two 24-bit halves (pids 0-7 and 8-15), so no field straddles a 32-bit
+//     word.
+//   - An alpha key's selector stands for every texel of that key only
+//     because the alpha is a function of (subset, weight) alone; the EAC
+//     range (min, max) is over the keys present, not over all keys.
 #pragma once
 #include <string.h>
 
@@ -123,44 +127,138 @@ UB_FN void eac_thresholds(int32_t center, int32_t mult, uint32_t m0, uint32_t m1
   T[3] = kill_lo ? T[4] : T[3];
 }
 
-// The EAC selector (0..7) of alpha a: its rank among the thresholds by a
-// 3-level search (3 compares), mapped back to the modifier index.
-UB_FN uint32_t eac_selector(int32_t a, const int32_t (&T)[7]) {
-  const bool b2 = a >= T[3];
-  const bool b1 = a >= (b2 ? T[5] : T[1]);
-  const int32_t t0 = b2 ? (b1 ? T[6] : T[4]) : (b1 ? T[2] : T[0]);
-  const uint32_t u = (static_cast<uint32_t>(b1) << 1) | static_cast<uint32_t>(a >= t0);
-  return u ^ (3u + static_cast<uint32_t>(b2));
+UB_FN uint32_t popc(uint32_t x) {
+#if defined(__CUDA_ARCH__)
+  return static_cast<uint32_t>(__popc(x));
+#else
+  return static_cast<uint32_t>(__builtin_popcount(x));
+#endif
 }
 
-// The EAC block of 16 alphas, packed 4 bytes a word in texel order.  The
-// solid overrides (min == max, then etc2tm == 0) come last, as in the
-// reference, so every thread runs the same straight-line code.
-UB_FN void eac_alpha_block(int32_t etc2tm, const uint32_t (&apk)[4], int32_t amin, int32_t amax,
-                           uint32_t& w0, uint32_t& w1) {
-  const int32_t tbl = etc2tm & 15, mult = etc2tm >> 4;
+// The thresholds of a block as lane constants of eac_selector: three
+// 10-bit lanes 255 + T[k] (k = 0..2), three of 2 * (256 - T[k]) (k = 4..6)
+// and 256 - T[3].
+struct EacLanes {
+  uint32_t lo, hi, mid;
+};
+
+UB_FN EacLanes eac_lanes(const int32_t (&T)[7]) {
+  EacLanes e;
+  e.lo = static_cast<uint32_t>(255 + T[0]) | (static_cast<uint32_t>(255 + T[1]) << 10) |
+         (static_cast<uint32_t>(255 + T[2]) << 20);
+  e.hi = (static_cast<uint32_t>(256 - T[4]) << 1) | (static_cast<uint32_t>(256 - T[5]) << 11) |
+         (static_cast<uint32_t>(256 - T[6]) << 21);
+  e.mid = static_cast<uint32_t>(256 - T[3]);
+  return e;
+}
+
+// The EAC selector (0..7) of alpha a.  The thresholds are non-decreasing,
+// so the hits a >= T[k] form a run from k = 0: below T[3] the selector is
+// the count of misses among T[0..2] (3 - rank), from T[3] up it is 4 plus
+// the hits among T[4..6].  Each lane of one multiply-add holds a - T[k]
+// offset to stay within 0..1023, so its bit 8 (bit 9 in the doubled lanes)
+// is the miss or hit; the selector is the popcount of those bits, T[3]'s
+// hit counted four times.  No compare, no predicate.
+UB_FN uint32_t eac_selector(int32_t a, const EacLanes& e) {
+  const uint32_t ua = static_cast<uint32_t>(a);
+  const uint32_t miss = e.lo - ua * 0x100401u;    // 255 + T[k] - a: bit 8 = a < T[k]
+  const uint32_t hit = ua * 0x200802u + e.hi;     // 2 (a + 256 - T[k]): bit 9 = a >= T[k]
+  const uint32_t hit3 = (ua + e.mid) & 0x100u;    // a + 256 - T[3]: bit 8 = a >= T[3]
+  return popc((miss & 0x10040100u) | (hit & 0x20080200u) | (hit3 * 0x3Cu));  // hit3: bits 10-13
+}
+
+// The EAC centre round(lerp(min, max, frac)) of table tbl, half away from
+// zero (>= 0 here), one IEEE rounding a step.
+UB_FN int32_t eac_center(int32_t tbl, int32_t amin, int32_t amax) {
   const float frac = bits_to_float(UB_LDG(&EAC_FRACTION_BITS[tbl]));
-  // centre = round(lerp(min, max, frac)), half away from zero (>= 0 here)
   const float lerped = fadd_rn(fmul_rn(static_cast<float>(amin), fsub_rn(1.0f, frac)),
                                fmul_rn(static_cast<float>(amax), frac));
-  const int32_t center = static_cast<int32_t>(fadd_rn(lerped, 0.5f));  // truncation
-  int32_t T[7];
-  eac_thresholds(center, mult, UB_LDG(&EAC_MOD_PACKED[2 * tbl]), UB_LDG(&EAC_MOD_PACKED[2 * tbl + 1]), T);
+  return static_cast<int32_t>(fadd_rn(lerped, 0.5f));  // truncation
+}
 
-  uint64_t payload = 0;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const int32_t a = static_cast<int32_t>((apk[i >> 2] >> (8 * (i & 3))) & 255u);
-    const int pid = (i % 4) * 4 + i / 4;  // x = i/4, y = i%4
-    payload |= static_cast<uint64_t>(eac_selector(a, T)) << (45 - 3 * pid);
-  }
+// The EAC block's two words from its centre, etc2tm and the selector
+// payload in two halves (bits 47..24 and 23..0 of the 48-bit payload).  The
+// solid overrides (min == max, then etc2tm == 0) come last, as in the
+// reference, so every thread runs the same straight-line code.
+UB_FN void eac_words(int32_t center, int32_t etc2tm, uint32_t hi24, uint32_t lo24, int32_t amin, int32_t amax,
+                     uint32_t& w0, uint32_t& w1) {
   // block byte b (2..7) is payload bits 47-8(b-2) .. 40-8(b-2)
-  const uint32_t hi = static_cast<uint32_t>(payload >> 32), lo = static_cast<uint32_t>(payload);
+  const uint32_t hi = hi24 >> 8, lo = (hi24 << 24) | lo24;
   w0 = (static_cast<uint32_t>(center) & 0xFFu) | (static_cast<uint32_t>(etc2tm) << 8) |
        ((hi & 0xFF00u) << 8) | ((hi & 0xFFu) << 24);
   w1 = (lo >> 24) | ((lo >> 8) & 0xFF00u) | ((lo & 0xFF00u) << 8) | ((lo & 0xFFu) << 24);
   if (amin == amax) solid_alpha_block(static_cast<uint32_t>(amin), w0, w1);
   if (etc2tm == 0) solid_alpha_block(255u, w0, w1);
+}
+
+// PRMT: byte k of the result is byte (s >> 4k) & 7 of the pair (b:a), a
+// holding bytes 0-3 (selector nibbles with bit 3 set, sign replication,
+// are not used here).
+UB_FN uint32_t byte_perm(uint32_t a, uint32_t b, uint32_t s) {
+#if defined(__CUDA_ARCH__)
+  return __byte_perm(a, b, s);
+#else
+  const uint64_t x = (static_cast<uint64_t>(b) << 32) | a;
+  uint32_t r = 0;
+  for (int k = 0; k < 4; ++k) r |= static_cast<uint32_t>((x >> (8 * ((s >> (4 * k)) & 7u))) & 0xFFu) << (8 * k);
+  return r;
+#endif
+}
+
+// Lowest and highest set bit of x != 0.
+UB_FN int32_t low_bit(uint32_t x) {
+#if defined(__CUDA_ARCH__)
+  return __ffs(static_cast<int>(x)) - 1;
+#else
+  return __builtin_ctz(x);
+#endif
+}
+
+UB_FN int32_t high_bit(uint32_t x) {
+#if defined(__CUDA_ARCH__)
+  return 31 - __clz(static_cast<int>(x));
+#else
+  return 31 - __builtin_clz(x);
+#endif
+}
+
+// Alpha keys: a texel's alpha is a function of its subset and its
+// alpha-plane weight alone, so the key (subset << weight_bits) | weight
+// names it.  The alpha reads plane 1 where the component selector is 3.
+template <int M>
+UB_FN uint32_t alpha_key(const uint32_t (&l)[4], const BlockLerp<M>& b, int i) {
+  using C = Mode<M>;
+  uint32_t w = texel_weight<M>(l, b.abp, i, 0);
+  if constexpr (C::planes == 2) w = b.cs == 3 ? texel_weight<M>(l, b.abp, i, 1) : w;
+  if constexpr (C::subsets > 1) w |= static_cast<uint32_t>(texel_subset<M>(b, i)) << C::weight_bits;
+  return w;
+}
+
+// The alpha of key k, from b's alpha lerp.
+template <int M>
+UB_FN int32_t alpha_of_key(const BlockLerp<M>& b, uint32_t k) {
+  using C = Mode<M>;
+  constexpr int wb = C::weight_bits;
+  const uint32_t s = k >> wb;
+  int32_t l0 = b.L0[0][3], d = b.D[0][3];
+#pragma unroll
+  for (int t = 1; t < C::subsets; ++t) {
+    l0 = s == static_cast<uint32_t>(t) ? b.L0[t][3] : l0;
+    d = s == static_cast<uint32_t>(t) ? b.D[t][3] : d;
+  }
+  return interp_eval(l0, d, unquant_weight<wb>(static_cast<int32_t>(k & mask(wb))));
+}
+
+// The selector of key k from a table of one selector byte a key (byte k of
+// the table is key k's), by one PRMT.
+template <int NKEYS>
+UB_FN uint32_t key_selector(const uint32_t (&tab)[2], uint32_t k) {
+  if constexpr (NKEYS <= 4) {
+    return byte_perm(tab[0], 0u, k | 0x4440u);  // the upper bytes read the zero word
+  } else {
+    static_assert(NKEYS <= 8, "at most 8 keys");
+    return byte_perm(tab[0], tab[1], k) & 0xFFu;
+  }
 }
 
 // ---- the ETC1 block --------------------------------------------------------
@@ -269,30 +367,91 @@ UB_FN void etc1_block(const EtcFlags& f, const int32_t (&q)[4][3], const int32_t
   }
 }
 
-// Stream the block's texels into the ETC1 inputs (quad sums, luminances)
-// and, with kAlpha, the alphas packed 4 a word with their min and max.
-template <int M, bool kAlpha>
-UB_FN bool etc_texels(const uint32_t (&l)[4], int32_t (&q)[4][3], int32_t (&lum)[16], uint32_t (&apk)[4],
-                      int32_t& amin, int32_t& amax) {
+// Fold texel i's RGB into the ETC1 inputs: its 2x2-quad channel sums and
+// its luminance.
+UB_FN void fold_texel(int i, const int32_t (&ch)[4], int32_t (&q)[4][3], int32_t (&lum)[16]) {
+  const int qd = (i / 8) * 2 + (i % 4) / 2;
+  q[qd][0] += ch[0];
+  q[qd][1] += ch[1];
+  q[qd][2] += ch[2];
+  lum[i] = ch[0] * 108 + ch[1] * 366 + ch[2] * 38;
+}
+
+// Stream the block's texels into the ETC1 inputs (quad sums, luminances).
+template <int M>
+UB_FN bool etc_texels(const uint32_t (&l)[4], int32_t (&q)[4][3], int32_t (&lum)[16]) {
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    q[k][0] = q[k][1] = q[k][2] = 0;
-    apk[k] = 0;
-  }
-  amin = 255;
-  amax = 0;
-  return for_each_texel<M, kAlpha ? 4 : 3>(l, [&](int i, const int32_t (&ch)[4]) {
-    const int qd = (i / 8) * 2 + (i % 4) / 2;
-    q[qd][0] += ch[0];
-    q[qd][1] += ch[1];
-    q[qd][2] += ch[2];
-    lum[i] = ch[0] * 108 + ch[1] * 366 + ch[2] * 38;
-    if constexpr (kAlpha) {
-      apk[i / 4] |= static_cast<uint32_t>(ch[3]) << (8 * (i % 4));
-      amin = imin(amin, ch[3]);
-      amax = imax(amax, ch[3]);
+  for (int k = 0; k < 4; ++k) q[k][0] = q[k][1] = q[k][2] = 0;
+  return for_each_texel<M, 3>(l, [&](int i, const int32_t (&ch)[4]) { fold_texel(i, ch, q, lum); });
+}
+
+// The EAC block of an alpha mode's block (M not 8, alpha format) and the
+// ETC1 inputs, in two passes over the texels.  Pass 1 folds each texel's
+// RGB into the ETC1 inputs and takes its alpha key; the lerp is monotone in
+// the weight, so the alpha range is that of the lowest and highest weight
+// present in each subset.  Then each key's alpha gets its selector once, in
+// a byte table, and pass 2 looks each texel's key up (one PRMT) and places
+// its selector; with 16 keys (4-bit weights) pass 2 searches each texel's
+// alpha instead.  No texel's alpha is kept.
+template <int M>
+UB_FN bool etc2_alpha_texels(const uint32_t (&l)[4], int32_t etc2tm, int32_t (&q)[4][3], int32_t (&lum)[16],
+                             uint32_t& w0, uint32_t& w1) {
+  using C = Mode<M>;
+  constexpr int wb = C::weight_bits, nkeys = C::subsets << wb;
+  BlockLerp<M> b;
+  const bool err = decode_block<M, 4>(l, b);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) q[k][0] = q[k][1] = q[k][2] = 0;
+  uint32_t kmin = nkeys - 1, kmax = 0, present = 0;  // one subset: key range; two: keys present
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    int32_t ch[4];
+    texel_channels<M, 3>(l, b, i, ch);
+    fold_texel(i, ch, q, lum);
+    const uint32_t k = alpha_key<M>(l, b, i);
+    if constexpr (C::subsets == 1) {
+      kmin = k < kmin ? k : kmin;
+      kmax = k > kmax ? k : kmax;
+    } else {
+      present |= 1u << k;
     }
-  });
+  }
+  int32_t amin = 255, amax = 0;
+#pragma unroll
+  for (int s = 0; s < C::subsets; ++s) {
+    uint32_t lo = kmin, hi = kmax;
+    if constexpr (C::subsets > 1) {
+      const uint32_t keys = (present >> (s << wb)) & mask(1 << wb);  // every subset holds a texel
+      lo = (static_cast<uint32_t>(s) << wb) | static_cast<uint32_t>(low_bit(keys));
+      hi = (static_cast<uint32_t>(s) << wb) | static_cast<uint32_t>(high_bit(keys));
+    }
+    const int32_t a0 = alpha_of_key<M>(b, lo), a1 = alpha_of_key<M>(b, hi);
+    amin = imin(amin, imin(a0, a1));
+    amax = imax(amax, imax(a0, a1));
+  }
+  const int32_t tbl = etc2tm & 15, mult = etc2tm >> 4;
+  const int32_t center = eac_center(tbl, amin, amax);
+  int32_t T[7];
+  eac_thresholds(center, mult, UB_LDG(&EAC_MOD_PACKED[2 * tbl]), UB_LDG(&EAC_MOD_PACKED[2 * tbl + 1]), T);
+  const EacLanes lanes = eac_lanes(T);
+  uint32_t tab[2] = {0, 0};  // up to 8 keys: one selector byte a key
+  if constexpr (nkeys <= 8) {
+#pragma unroll
+    for (int k = 0; k < nkeys; ++k) tab[k / 4] |= eac_selector(alpha_of_key<M>(b, k), lanes) << (8 * (k % 4));
+  }
+  uint32_t hi24 = 0, lo24 = 0;  // payload bits 47..24 (pids 0-7) and 23..0 (pids 8-15)
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const uint32_t k = alpha_key<M>(l, b, i);
+    uint32_t sel;
+    if constexpr (nkeys <= 8) sel = key_selector<nkeys>(tab, k);
+    else sel = eac_selector(alpha_of_key<M>(b, k), lanes);  // 16 keys: a table costs more than a search a texel
+    const int pid = (i % 4) * 4 + i / 4;  // x = i/4, y = i%4
+    if (pid < 8) hi24 |= sel << (21 - 3 * pid);
+    else lo24 |= sel << (21 - 3 * (pid - 8));
+  }
+  eac_words(center, etc2tm, hi24, lo24, amin, amax, w0, w1);
+  return err;
 }
 
 // UASTC block -> ETC1 block (2 words).  Returns the block's error flag.
@@ -302,9 +461,8 @@ UB_FN bool uastc_to_etc1(const uint32_t (&l)[4], uint32_t (&o)[2]) {
     mode8_etc1(l, o[0], o[1]);
     return false;
   } else {
-    int32_t q[4][3], lum[16], amin, amax;
-    uint32_t apk[4];
-    const bool err = etc_texels<M, false>(l, q, lum, apk, amin, amax);
+    int32_t q[4][3], lum[16];
+    const bool err = etc_texels<M>(l, q, lum);
     etc1_block<M>(decode_trans_flags<M>(l), q, lum, o[0], o[1]);
     return err;
   }
@@ -318,15 +476,14 @@ UB_FN bool uastc_to_etc2(const uint32_t (&l)[4], uint32_t (&o)[4]) {
     mode8_etc1(l, o[2], o[3]);
     return false;
   } else {
-    constexpr bool kAlpha = Mode<M>::format != FORMAT_RGB;
-    int32_t q[4][3], lum[16], amin, amax;
-    uint32_t apk[4];
-    const bool err = etc_texels<M, kAlpha>(l, q, lum, apk, amin, amax);
+    int32_t q[4][3], lum[16];
     const EtcFlags f = decode_trans_flags<M>(l);
-    if constexpr (kAlpha) {
-      eac_alpha_block(f.etc2tm, apk, amin, amax, o[0], o[1]);
+    bool err;
+    if constexpr (Mode<M>::format != FORMAT_RGB) {
+      err = etc2_alpha_texels<M>(l, f.etc2tm, q, lum, o[0], o[1]);
     } else {
       // RGB modes decode alpha 255 and carry no etc2tm: the solid-255 block
+      err = etc_texels<M>(l, q, lum);
       solid_alpha_block(255u, o[0], o[1]);
     }
     etc1_block<M>(f, q, lum, o[2], o[3]);

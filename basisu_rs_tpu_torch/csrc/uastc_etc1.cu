@@ -40,3 +40,7 @@ extern "C" int uastc_etc1_launch(int mode, const void* in, const void* index, in
                                  void* err, void* stream) {
   return ub::launch<Etc1>(mode, in, index, n, out, err, stream);
 }
+
+// Warps of mode `mode`'s kernel resident on one SM into *warps; see
+// ub::resident_warps.
+extern "C" int uastc_etc1_warps(int mode, int* warps) { return ub::resident_warps<Etc1>(mode, warps); }

@@ -8,20 +8,33 @@
 // uastc_etc.cuh over K3's texel decode (uastc_rgba.cuh, uastc_decode.cuh),
 // the launch layout in uastc_launch.cuh.
 //
-// What bounds it on the H100: the function needs 33 bytes of HBM a block
-// (16 in, 16 out, a 1-byte error flag; the dispatch's int64 index list adds
-// 8 more): at 2^23 blocks 0.083 ms at 3.35 TB/s.  Against that stands K4's
-// work plus, in the alpha modes, the 16 alpha lerps, the EAC centre (three
-// f32 operations), 8 clamped candidate values and a 3-compare rank search
-// per texel.
+// What bounds it on the H100: integer issue.  The function needs 33 bytes
+// of HBM a block (16 in, 16 out, a 1-byte error flag; the dispatch's int64
+// index list adds 8 more): at 2^23 blocks 0.083 ms at 3.35 TB/s.  Against
+// that stand K4's whole ETC1 work and, in the alpha modes 9-17, the alpha
+// range, the EAC centre and thresholds and 16 selector searches.  At 2^23
+// contiguous blocks of one mode every mode but 8 runs at 69-78% of its
+// issue bound (blocks / 32 x SASS instructions over 132 SMs x 4 issue
+// slots) and under 40% of its HBM bound.
 //
-// What the design does about it: K4's streaming layout, with each texel's
-// alpha packed 4 to a word and the min and max tracked as it streams; the
-// duplicate-run fixups of the selector search are folded into the seven
-// thresholds once per block, so a texel costs 3 compares and 4 selects; the
-// 16 three-bit selectors accumulate in one 64-bit payload; the RGB modes
-// skip the whole alpha search and write the solid-255 block.  One 16-byte
-// store a block.
+// What the design does about it: cut the instructions.  K4's streaming
+// layout for the ETC1 half.  The EAC half takes two passes over the
+// texels' alpha keys (subset, alpha-plane weight), which name each texel's
+// alpha: pass 1 keeps only the range of keys present, since the lerp is
+// monotone in the weight; the selectors are searched once a key (up to 8
+// keys) into a byte table that pass 2 reads with one PRMT a texel, or once
+// a texel where 4-bit weights make 16 keys.  The search itself is
+// branch-free: three lanes a multiply-add hold a - T[k], and the selector
+// is a popcount of their top bits (uastc_etc.cuh).  No texel's alpha is
+// kept.  Measured with chip_smoke.py (H100 80GB HBM3, 700 W):
+// the 19 launches take 0.411 ms against 0.499 ms before (alpha texels
+// packed four a word, a 3-level compare search a texel that ptxas spread
+// over 62 predicate spills in mode 17: 1,107-1,496 SASS instructions and
+// 79-115 registers in the alpha modes, now 809-1,353 and 40-80); each alpha
+// mode takes 1.28-1.40x K4's time on the same mode, against 1.62-2.14x.
+// Capping the old design's registers instead (__launch_bounds__(256, 3)
+// or (256, 4)) spilled 8-216 bytes in the alpha modes and saved under 2%
+// (tools/csrc_ab.py, same card).
 #include "uastc_etc.cuh"
 #include "uastc_launch.cuh"
 
@@ -41,3 +54,7 @@ extern "C" int uastc_etc2_launch(int mode, const void* in, const void* index, in
                                  void* err, void* stream) {
   return ub::launch<Etc2>(mode, in, index, n, out, err, stream);
 }
+
+// Warps of mode `mode`'s kernel resident on one SM into *warps; see
+// ub::resident_warps.
+extern "C" int uastc_etc2_warps(int mode, int* warps) { return ub::resident_warps<Etc2>(mode, warps); }

@@ -10,8 +10,10 @@ concurrent build never leaves a partial library behind.
 each `.cu` to an object in its own nvcc process, all started together, and
 one nvcc then links them.  The build writes nvcc's output, including the
 `-Xptxas -v` register and spill report of every kernel, beside the library
-(`build_log()`, `ptxas_report()`).  `host_library()` builds one host C++
-source with g++ (the container's CRC-16, the ETC1S front-end).
+(`build_log()`, `ptxas_report()`); `sass_counts()` counts each kernel's
+SASS instructions in the built library with the toolkit's cuobjdump.
+`host_library()` builds one host C++ source with g++ (the container's
+CRC-16, the ETC1S front-end).
 
 Nothing here runs at import time: `load()` is called by the kernel wrapper
 on the first CUDA launch.  There is no fallback: a missing compiler or a
@@ -50,6 +52,8 @@ LAUNCH = {
     "etc1": "uastc_etc1_launch",
     "etc2": "uastc_etc2_launch",
 }
+# target -> C entry point that reports its kernels' resident warps per SM
+WARPS = {t: f"uastc_{t}_warps" for t in LAUNCH}
 # C launch entry point of the ETC1S kernels K6-K9 (csrc/etc1s.cu)
 ETC1S_LAUNCH = "etc1s_launch"
 ETC1S_KINDS = ("rgba", "alpha", "rgba_alpha", "etc1")  # the kernels' KIND 0..3
@@ -174,6 +178,10 @@ def load() -> ctypes.CDLL:
             ctypes.c_void_p,  # err
             ctypes.c_void_p,  # stream
         ]
+    for name in WARPS.values():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p]  # mode, int* warps
     fn = getattr(lib, ETC1S_LAUNCH)
     fn.restype = ctypes.c_int
     fn.argtypes = [
@@ -265,3 +273,42 @@ def parse_ptxas(text: str) -> dict:
 def ptxas_report() -> dict:
     """parse_ptxas() of the current build's log."""
     return parse_ptxas(build_log())
+
+
+_SASS_FUNCTION = re.compile(r"^\s*Function : (\S+)")
+_SASS_INSTRUCTION = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s+([^;]*);")
+
+
+def parse_sass(lines) -> dict:
+    """{key: instructions} from `cuobjdump -sass` output, keyed as
+    `_kernel_key` says: the static count of each kernel's SASS instructions,
+    NOP padding left out."""
+    out: dict = {}
+    cur = None
+    for line in lines:
+        m = _SASS_FUNCTION.match(line)
+        if m:
+            cur = _kernel_key(m.group(1))
+            if cur is not None:
+                out[cur] = 0
+            continue
+        if cur is None:
+            continue
+        m = _SASS_INSTRUCTION.match(line)
+        if m and m.group(1).split()[0] != "NOP":
+            out[cur] += 1
+    return out
+
+
+def sass_counts() -> dict:
+    """parse_sass() of the built library, through the toolkit's cuobjdump
+    (beside nvcc); builds the library first if needed."""
+    so, _ = _paths()
+    if not so.exists():
+        build()
+    cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
+    with subprocess.Popen([str(cuobjdump), "-sass", str(so)], stdout=subprocess.PIPE, text=True) as proc:
+        counts = parse_sass(proc.stdout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump -sass {so.name} failed with exit code {proc.returncode}")
+    return counts

@@ -19,6 +19,8 @@ kernel launches (`launches`) and its plain-version calls (`plain_calls`).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import astc, bc7, build, etc, rgba
@@ -130,6 +132,17 @@ _KERNELS = {t: tuple(ModeKernel(t, m) for m in range(N_MODES)) for t in TARGETS}
 
 def mode_kernel(target: str, mode: int) -> ModeKernel:
     return _KERNELS[target][mode]
+
+
+def resident_warps(target: str, mode: int) -> int:
+    """Warps of (target, mode)'s kernel resident on one SM of the current
+    card, from the CUDA runtime's occupancy calculator (registers, shared
+    memory, CTA size)."""
+    warps = ctypes.c_int(0)
+    rc = getattr(build.load(), build.WARPS[target])(mode, ctypes.byref(warps))
+    if rc != 0:
+        raise RuntimeError(f"{target} kernel of mode {mode}: occupancy query failed, cudaError_t {rc}")
+    return warps.value
 
 
 def launch_counts() -> dict:

@@ -1,0 +1,139 @@
+"""A/B timing of kernel-source variants on the card.
+
+    python -m basisu_rs_tpu_torch.tools.csrc_ab TARGETS DIR [DIR ...] [--dump MODES --out OUT]
+
+Each DIR holds a copy of `csrc/` (`*.cu`, `*.cuh`), edited or not.  For
+every DIR the tool builds `uastc_<target>.cu` of each target in TARGETS (a
+comma list of bc7, astc, rgba, etc1, etc2) with the package's nvcc flags
+into its own library, then on the main path's cell (the golden blocks tiled
+to 2^23, partitioned by mode) runs each variant's 19 launches, checks the
+output against the tiled golden outputs, bit-exact, and times each mode's
+launch and the 19 together (device time, median of 10, twice: the
+variants in order, then in reverse).  Each line gives a variant's sums and,
+per mode, its time, registers, spill-store bytes and SASS instructions.
+`--dump 9,13` writes the SASS of those modes' kernels to OUT (default
+`basisu_rs_tpu_torch/build/csrc_ab/`) for reading.
+Every variant runs in the same call, on the same card, so their times
+compare; a time from another call does not.  Importing this module runs
+nothing; the timing needs a card and nvcc.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import statistics
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..ops import build, kernels
+from ..ops.dispatch import partition
+from ..utils.profiling import event_times_ms
+
+FIXTURE = Path(__file__).resolve().parents[2] / "tests" / "fixtures" / "golden_blocks.npz"
+N_BLOCKS = 1 << 23
+REPS = 10
+
+
+def build_variant(src: Path, targets, out: Path, dump_modes):
+    """(library, ptxas report, SASS counts) of src's targets, built into out."""
+    nvcc = build.nvcc_path()
+    so = out / f"lib_{src.name}.so"
+    objs = [out / f"{src.name}_{t}.o" for t in targets]
+    compiles = [[nvcc, *build.NVCC_FLAGS, "-I", str(src), "-c", "-o", str(o), str(src / f"uastc_{t}.cu")]
+                for t, o in zip(targets, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in compiles]
+    log = "".join(p.communicate()[0] for p in procs)
+    if any(p.returncode for p in procs):
+        raise RuntimeError(f"build of {src} failed:\n{log}")
+    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(so), *map(str, objs)],
+                   check=True, capture_output=True)
+    dump = subprocess.run([str(Path(nvcc).with_name("cuobjdump")), "-sass", str(so)], check=True,
+                          capture_output=True, text=True).stdout.splitlines(keepends=True)
+    counts = build.parse_sass(dump)
+    if dump_modes:
+        cur = None
+        texts: dict = {}
+        for line in dump:
+            m = build._SASS_FUNCTION.match(line)
+            if m:
+                cur = build._kernel_key(m.group(1))
+            if cur is not None and cur[1] in dump_modes:
+                texts.setdefault(cur, []).append(line)
+        for (t, m), lines in texts.items():
+            (out / f"sass_{src.name}_{t}_{m}.txt").write_text("".join(lines))
+    lib = ctypes.CDLL(str(so))
+    for t in targets:
+        fn = getattr(lib, build.LAUNCH[t])
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p]
+    return lib, build.parse_ptxas(log), counts
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("targets")
+    ap.add_argument("dirs", nargs="+", type=Path)
+    ap.add_argument("--dump", default="", help="comma list of modes whose SASS to write")
+    ap.add_argument("--out", type=Path, default=build.BUILD / "csrc_ab")
+    args = ap.parse_args(argv)
+    targets = args.targets.split(",")
+    args.out.mkdir(parents=True, exist_ok=True)
+    dump_modes = {int(m) for m in args.dump.split(",") if m}
+
+    dev = torch.device("cuda")
+    golden = np.load(FIXTURE)
+    gin = golden["bc7_in"]
+    reps = -(-N_BLOCKS // len(gin))
+    full = torch.from_numpy(np.tile(gin, (reps, 1))[:N_BLOCKS]).to(dev)
+    order, counts = partition(full)
+    starts = np.concatenate([[0], np.cumsum(counts)]).tolist()
+    groups = [order[starts[m]:starts[m + 1]] for m in range(19)]
+    variants = {d.name: build_variant(d, targets, args.out, dump_modes) for d in args.dirs}
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def med(fn):
+        return statistics.median(event_times_ms(fn, REPS, preload=True))
+
+    for t in targets:
+        ob = kernels.OUT_BYTES[t]
+        expected = torch.from_numpy(np.tile(golden[f"{t}_out"].view(np.uint8).reshape(len(gin), ob),
+                                            (reps, 1))[:N_BLOCKS]).to(dev)
+        out = torch.zeros(N_BLOCKS, ob, dtype=torch.uint8, device=dev)
+        err = torch.zeros(N_BLOCKS, dtype=torch.bool, device=dev)
+        runs: dict = {}
+        for names in (list(variants), list(reversed(variants))):
+            for name in names:
+                fn = getattr(variants[name][0], build.LAUNCH[t])
+
+                def go(m, fn=fn, name=name):
+                    rc = fn(m, full.data_ptr(), groups[m].data_ptr(), groups[m].shape[0], out.data_ptr(),
+                            err.data_ptr(), stream)
+                    if rc:
+                        raise RuntimeError(f"{name} {t} mode {m}: launch failed, cudaError_t {rc}")
+
+                out.zero_()
+                for m in range(19):
+                    go(m)
+                torch.cuda.synchronize()
+                if not torch.equal(out, expected) or bool(err.any()):
+                    raise RuntimeError(f"{name} {t}: output differs from the tiled golden outputs")
+                runs.setdefault(name, []).append((med(lambda: [go(m) for m in range(19)]),
+                                                  [med(lambda m=m: go(m)) for m in range(19)]))
+        for name, r in runs.items():
+            _, ptxas, sass = variants[name]
+            per_mode = np.mean([ms for _, ms in r], axis=0)
+            print(f"{t} {name}: 19 launches {' / '.join(f'{s:.4f}' for s, _ in r)} ms; mode:ms/registers/spill "
+                  f"bytes/SASS " + " ".join(f"{m}:{per_mode[m]:.4f}/{ptxas[(t, m)]['registers']}/"
+                                            f"{ptxas[(t, m)]['spill_stores']}/{sass[(t, m)]}" for m in range(19)))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

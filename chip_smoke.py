@@ -10,7 +10,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   2. nvcc build of csrc/*.cu for sm_90a (one nvcc per source, in parallel),
      with seconds and the ptxas register/spill report of all 193 kernels
      (K1 BC7, K2 ASTC, K3 RGBA, K4 ETC1, K5 ETC2, x 19 UASTC modes; K6-K9,
-     the four ETC1S kinds; the 93 T1 stage kernels; the probe P);
+     the four ETC1S kinds; the 93 T1 stage kernels; the probe P); for K3,
+     K4 and K5 per mode also the resident warps per SM (the CUDA runtime's
+     occupancy calculator) and the static SASS instruction count
+     (cuobjdump -sass of the built library), and 0 B of spills required of
+     K3 and K5;
   3. per UASTC mode 0-18: the BC7 kernel against its plain PyTorch version
      on the card, on that mode's golden blocks plus 65,536 seeded random
      blocks of the mode (invalid pattern indices included), with and
@@ -30,7 +34,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      invalid-mode and invalid-pattern blocks through the block functions,
      which must raise the reference's messages;
   8. as phase 5, for ASTC (128 MiB in, 128 MiB out) and RGBA (128 MiB in,
-     512 MiB out);
+     512 MiB out); K3's 19 launches are also run and timed with each mode's
+     index randomly permuted (the scatter of real files), bit-exact against
+     the tiled golden outputs;
   9. the file path at full size: a UASTC .basis texture array of 8 slices of
      4096x4096 texels (2^23 blocks) written by the port's writer, read by
      `read_to_bc7`, `read_to_astc` and `read_to_rgba` and checked image by
@@ -89,8 +95,14 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      skips the files done, all three timed;
  22. the CLI on the card: `python -m basisu_rs_tpu_torch selftest` as a
      subprocess, `info` of a file, and `transcode --container ktx2|ktx|png`
-     whose files equal the writers applied to the readers' output.
-Phases 17-22 print their seconds.
+     whose files equal the writers applied to the readers' output;
+ 23. K3, K4 and K5 per mode on 2^23 contiguous blocks of that mode (its
+     golden blocks tiled, no index), each output bit-exact against the
+     tiled golden outputs, timed beside its HBM bound and its issue bound
+     (2^23 / 32 warps x phase 2's SASS count over 132 SMs x 4 issue slots
+     at the maximum SM clock), so the launch ramp of the main path's
+     ~441,500-block launches is apart from the steady rate.
+Phases 17-23 print their seconds.
 The last two lines before the final one are a JSON line of per-kernel
 results and the card's name and power limit; the final line is the
 `{"ok": true, "device": ...}` result.  Imports torch, numpy and
@@ -138,6 +150,9 @@ PROBE_BYTES = 8  # an int32 in, a float32 out
 CORPUS_SIZES = ((6, 1024), (6, 2048), (24, 2048))  # (textures, width): ~2^19, ~2^21, ~2^23 blocks
 ETC1S_FILES, ETC1S_FILE_SLICES = 64, 2  # phase 20: 64 files x 2 slices x 65,536 blocks = 2^23
 PIPE_UASTC, PIPE_ETC1S, PIPE_WIDTH = 64, 16, 1024  # phase 21's corpus
+SHAPE_TARGETS = ("rgba", "etc1", "etc2")  # K3-K5: phase 2's shape report and phase 23
+KERNEL_THREADS = 256  # threads a CTA of the UASTC kernels (csrc/uastc_launch.cuh kThreads)
+ISSUE_SLOTS = 4  # warp instructions an SM issues a cycle (four schedulers)
 
 
 def require(cond, msg: str) -> None:
@@ -549,6 +564,54 @@ def stages_timing(bc7_stages, kernels, dev, card: str, k1_mode_ms: dict, k1_coun
     return res
 
 
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm), in MHz."""
+    res = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return float(res.stdout.strip().splitlines()[0])
+
+
+def contiguous_modes(kernels, dev, card: str, golden_in, golden_out, block_bytes, shape, phase_ms, counts) -> None:
+    """Phase 23: K3, K4 and K5 per mode on N_FULL contiguous blocks of that
+    mode (its golden blocks tiled) with no index, each output checked
+    against the tiled golden outputs; beside each time its HBM bound and
+    its issue bound, N_FULL / 32 warps x the SASS count of phase 2 over the
+    SMs' issue slots at the maximum SM clock."""
+    from basisu_rs_tpu_torch.ops.dispatch import block_modes
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = sm_clock_mhz()
+    golden = torch.from_numpy(golden_in).to(dev)
+    modes = block_modes(golden)
+    for t in SHAPE_TARGETS:
+        gold_out = torch.from_numpy(np.ascontiguousarray(golden_out[t])).to(dev)
+        k_out = torch.empty(N_FULL, gold_out.shape[1], dtype=torch.uint8, device=dev)
+        k_err = torch.empty(N_FULL, dtype=torch.bool, device=dev)
+        total = 0.0
+        for m in range(19):
+            small, small_out = golden[modes == m], gold_out[modes == m]
+            reps = -(-N_FULL // small.shape[0])
+            blocks = small.repeat(reps, 1)[:N_FULL].contiguous()
+            k = kernels.mode_kernel(t, m)
+            k(blocks, None, k_out, k_err)  # warm-up
+            ms = median_ms(lambda: k(blocks, None, k_out, k_err), preload=True)
+            require(bool(torch.equal(k_out, small_out.repeat(reps, 1)[:N_FULL])) and not bool(k_err.any()),
+                    f"{t} mode {m} at {N_FULL} contiguous blocks differs from the tiled golden outputs")
+            total += ms
+            regs, warps, instr = shape[(t, m)]
+            hbm = N_FULL * block_bytes[t] / HBM_BYTES_PER_S * 1e3
+            issue = N_FULL / 32 * instr / (sms * ISSUE_SLOTS * clock * 1e6) * 1e3
+            print(f"phase 23 {t} mode {m:2d} [{card}]: {N_FULL} contiguous blocks == tiled golden (tolerance 0); "
+                  f"device time {ms:.4f} ms = {N_FULL / ms / 1e3:.1f} Mblocks/s; HBM bound {hbm:.4f} ms "
+                  f"({100 * hbm / ms:.1f}%); issue bound {issue:.4f} ms ({instr} SASS instructions a thread, "
+                  f"{sms} SMs x {ISSUE_SLOTS} x {clock:.0f} MHz; {100 * issue / ms:.1f}%); {regs} registers, {warps} "
+                  f"warps/SM; on the main path {phase_ms[t][m]:.4f} ms over {counts[m]} indexed blocks")
+            del blocks
+        print(f"phase 23 {t} [{card}]: sum over the 19 modes {total:.4f} ms at {N_FULL} blocks a mode")
+        del k_out, k_err, gold_out
+        torch.cuda.empty_cache()
+
+
 def mip_slices(blocks: np.ndarray, textures: int, width: int, first: int = 0) -> list:
     """Mip chains of `textures` square textures of `width` texels, level 0
     down to 4x4 texels, cut in order from blocks[first:]: a list of
@@ -864,6 +927,19 @@ def main() -> int:
           f"spill stores, {r['spill_loads']} B spill loads")
     require(len(ptxas) == 193, f"ptxas reports {len(ptxas)} kernels, expected 193")
     print("phase 2 ptxas json " + json.dumps({f"{t}/{m}": v for (t, m), v in sorted(ptxas.items(), key=str)}))
+    sass = build.sass_counts()
+    shape = {}  # (target, mode) -> (registers, resident warps per SM, SASS instructions)
+    for t in SHAPE_TARGETS:
+        for m in range(19):
+            r = ptxas[(t, m)]
+            if t != "etc1":
+                require(r["spill_stores"] == 0 and r["spill_loads"] == 0, f"{t} mode {m} spills: {r}")
+            require((t, m) in sass, f"no SASS for {t} mode {m}")
+            shape[(t, m)] = (r["registers"], kernels.resident_warps(t, m), sass[(t, m)])
+            print(f"  shape uastc_kernel<{OP_NAME[t]}<{m}>>: {shape[(t, m)][0]} registers, {shape[(t, m)][1]} resident "
+                  f"warps per SM at {KERNEL_THREADS} threads a CTA, {shape[(t, m)][2]} SASS instructions (cuobjdump "
+                  f"-sass, NOPs left out)")
+    print("phase 2 shape json " + json.dumps({f"{t}/{m}": v for (t, m), v in shape.items()}))
 
     golden = np.load(FIXTURE)
     lut = np_tables()["MODE_LUT"]
@@ -971,6 +1047,32 @@ def main() -> int:
                                                                              check_index=False),
                                 preload=True)
                    for m, idx in groups.items()}
+        perm_line = ""
+        if t == "rgba":
+            # the scatter of real files: each mode's rows in a random order,
+            # so a warp's 32 rows are seldom neighbours
+            gen = torch.Generator(device="cpu").manual_seed(SEED + 5)
+            perm = {m: idx[torch.randperm(len(idx), generator=gen).to(dev)] for m, idx in groups.items()}
+
+            def perm_alone():
+                for m, idx in perm.items():
+                    kernels.mode_kernel(t, m)(full, idx, k_out, k_err, check_index=False)
+
+            k_out.zero_()
+            perm_alone()
+            torch.cuda.synchronize()
+            require(bool(torch.equal(k_out, expected)) and not bool(k_err.any()),
+                    f"{t} launches through permuted indices differ from the tiled golden")
+            perm_ms = median_ms(perm_alone, preload=True)
+            perm_mode_ms = {m: median_ms(lambda m=m, idx=idx: kernels.mode_kernel(t, m)(full, idx, k_out, k_err,
+                                                                                      check_index=False),
+                                         preload=True)
+                            for m, idx in perm.items()}
+            del perm
+            perm_line = (f"phase {phase} {t} permuted index [{card}]: each mode's index randomly permuted, output "
+                         f"bit-exact vs tiled golden; 19 launches device time {perm_ms:.4f} ms (in-order index "
+                         f"{launch_dev_ms:.4f} ms); per mode " + ", ".join(f"{m} {v:.4f}" for m, v in perm_mode_ms.items())
+                         + " ms")
         del k_out, k_err
 
         p_out = torch.empty(N_FULL, out_bytes[t], dtype=torch.uint8, device=dev)
@@ -1008,6 +1110,8 @@ def main() -> int:
             print(f"phase {phase} {t} mode {m:2d} [{card}]: {counts[m]} blocks, kernel device time "
                   f"{mode_ms[m]:.4f} ms = {mtex(counts[m], mode_ms[m]):.1f} Mtexels/s; plain as called "
                   f"{plain_mode_ms[m]:.4f} ms = {mtex(counts[m], plain_mode_ms[m]):.1f} Mtexels/s")
+        if perm_line:
+            print(perm_line)
         results[t] = dict(launches=launches, mode_ms=mode_ms, plain_mode_ms=plain_mode_ms)
 
     main_path(5, "bc7")
@@ -1174,6 +1278,8 @@ def main() -> int:
     timed(20, lambda: corpus_phase(dev, card, full_np, full, kernels, etc1s))
     timed(21, lambda: pipeline_phase(dev, card, full_np, endpoints, selectors, read_to_rgba, basis))
     timed(22, lambda: cli_phase(card, full_np, endpoints, selectors))
+    timed(23, lambda: contiguous_modes(kernels, dev, card, golden_in, golden_out, block_bytes, shape,
+                                       {t: results[t]["mode_ms"] for t in SHAPE_TARGETS}, counts))
 
     result = {
         "kernels": [

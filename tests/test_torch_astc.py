@@ -2,12 +2,14 @@
 basisu_rs_tpu_torch/ops/astc.py) against the JAX package, per UASTC mode,
 bit-exact (tolerance 0) on the output bytes and the err flags: the golden
 pairs, seeded random blocks of every mode against the XLA path, and a few
-modes against the Pallas kernel in interpret mode (inputs:
+modes against the Pallas kernel in interpret mode, and a few blocks of every
+mode against the scalar oracle, tests/oracle_uastc.py (inputs:
 tests/torch_cases.py)."""
 
 import numpy as np
 import pytest
 
+import oracle_uastc as ou
 from basisu_rs_tpu_torch.api import transcode_uastc_blocks
 from torch_cases import assert_same, jax_pallas_interpret, jax_xla, mode_blocks, plain
 
@@ -32,3 +34,13 @@ def test_golden_pairs_bit_exact(golden):
     assert not err.any()
     assert_same("all", golden["astc_in"], (out.numpy(), err.numpy()),
                 (golden["astc_out"], np.zeros(len(out), bool)))
+
+
+@pytest.mark.parametrize("mode", range(19))
+def test_plain_matches_oracle(golden, mode):
+    # valid blocks only: the oracle raises where the kernels set err
+    blocks = mode_blocks(golden, mode, 24, seed=2)
+    out, err = plain(TARGET, mode, blocks)
+    for b, o, e in zip(blocks, out, err):
+        if not e:
+            assert o.tobytes() == ou.convert_block_to_astc(b.tobytes()), f"mode {mode}: {b.tolist()}"

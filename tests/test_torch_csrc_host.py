@@ -7,9 +7,14 @@ exact code the CUDA kernels run (the probe P evaluates `ub::fl_div255` of
 `uastc_decode.cuh`).  This test builds them into a temporary directory,
 calls them over ctypes and holds every mode, ETC1S kind and (mode, stage)
 against the plain PyTorch versions (tolerance 0): shift, signedness and
-table-index faults show here without a card.  The package never loads this
-build; it skips only when g++ is absent.  The last test checks the ptxas
-report parser of `ops/build.py` on a canned nvcc log."""
+table-index faults show here without a card.  Exhaustive pins cover the
+small helpers: the per-texel weight read of every (mode, pattern, texel,
+plane), the EAC selector search, K5's alpha-key lookup and bit scans, the
+ETC1 selector forms, the subblock average and the bias rule; K5's alpha
+range is held at its edges (one key, the extreme keys).  The package never
+loads this build; it skips only when g++ is absent.  The last tests check
+the ptxas report and SASS count parsers of `ops/build.py` on canned
+output."""
 
 import ctypes
 import shutil
@@ -21,6 +26,9 @@ import torch
 
 from basisu_rs_tpu.tables import np_tables
 from basisu_rs_tpu_torch.ops import bc7_stages, build, etc1s, fl_div255_probe, kernels
+from basisu_rs_tpu_torch.ops.bits import lanes_from_bytes
+from basisu_rs_tpu_torch.ops.uastc_decode import decode_weights
+from basisu_rs_tpu_torch.tables import MODES, device_tables
 from torch_cases import bias_reference, eac_reference_selectors, etc1_selector_cases, etc1s_inputs
 
 HOST_ENTRY = r"""
@@ -105,13 +113,44 @@ extern "C" int bc7_stage_host(int mode, int stage, const uint8_t* in, long long 
   return 0;
 }
 
+// texel_weight<M> of every (texel, plane) under pattern pat over n blocks:
+// out[t][planes * i + p]; returns -1 for mode 8, which has no weights.
+template <int M>
+static void texel_weights_run(int pat, const uint8_t* in, long long n, uint32_t* out) {
+  constexpr int planes = ub::Mode<M>::planes;
+  const uint32_t abp = ub::weight_anchors<M>(pat);
+  for (long long t = 0; t < n; ++t) {
+    uint32_t l[4];
+    memcpy(l, in + 16 * t, 16);
+    for (int i = 0; i < 16; ++i)
+      for (int p = 0; p < planes; ++p) out[16 * planes * t + planes * i + p] = ub::texel_weight<M>(l, abp, i, p);
+  }
+}
+typedef void (*WeightsFn)(int, const uint8_t*, long long, uint32_t*);
+template <int M>
+static WeightsFn weights_fn() {
+  if constexpr (M == 8) return nullptr;
+  else return texel_weights_run<M>;
+}
+static const WeightsFn kWeights[19] = {
+    weights_fn<0>(),  weights_fn<1>(),  weights_fn<2>(),  weights_fn<3>(),  weights_fn<4>(),
+    weights_fn<5>(),  weights_fn<6>(),  weights_fn<7>(),  weights_fn<8>(),  weights_fn<9>(),
+    weights_fn<10>(), weights_fn<11>(), weights_fn<12>(), weights_fn<13>(), weights_fn<14>(),
+    weights_fn<15>(), weights_fn<16>(), weights_fn<17>(), weights_fn<18>()};
+extern "C" int texel_weights_host(int mode, int pat, const uint8_t* in, long long n, uint32_t* out) {
+  if (kWeights[mode] == nullptr) return -1;
+  kWeights[mode](pat, in, n, out);
+  return 0;
+}
+
 // The ETC pieces, batched for the exhaustive pins below.
 // EAC selector of every (centre, alpha) in 0..255 for one table and multiplier.
 extern "C" void eac_selectors_host(int tbl, int mult, uint8_t* out) {
   for (int center = 0; center < 256; ++center) {
     int32_t T[7];
     ub::eac_thresholds(center, mult, ub::EAC_MOD_PACKED[2 * tbl], ub::EAC_MOD_PACKED[2 * tbl + 1], T);
-    for (int a = 0; a < 256; ++a) out[256 * center + a] = static_cast<uint8_t>(ub::eac_selector(a, T));
+    const ub::EacLanes lanes = ub::eac_lanes(T);
+    for (int a = 0; a < 256; ++a) out[256 * center + a] = static_cast<uint8_t>(ub::eac_selector(a, lanes));
   }
 }
 // ETC1 wire bits ms | ls << 1 of n (luminance, 3 thresholds) cases.
@@ -121,6 +160,24 @@ extern "C" void etc1_selectors_host(const int* lum, const int* th, int n, uint8_
     uint32_t ms, ls;
     ub::etc1_selector(lum[k], t, ms, ls);
     out[k] = static_cast<uint8_t>(ms | (ls << 1));
+  }
+}
+// key_selector<NKEYS> of every key k < NKEYS from the table (tab0, tab1).
+extern "C" void key_selectors_host(int nkeys, uint32_t tab0, uint32_t tab1, uint8_t* out) {
+  const uint32_t tab[2] = {tab0, tab1};
+  for (int k = 0; k < nkeys; ++k) {
+    uint32_t v = 0;
+    if (nkeys == 2) v = ub::key_selector<2>(tab, k);
+    else if (nkeys == 4) v = ub::key_selector<4>(tab, k);
+    else v = ub::key_selector<8>(tab, k);
+    out[k] = static_cast<uint8_t>(v);
+  }
+}
+// low_bit and high_bit of x = 1..n-1.
+extern "C" void bit_scans_host(int n, int* low, int* high) {
+  for (int x = 1; x < n; ++x) {
+    low[x] = ub::low_bit(static_cast<uint32_t>(x));
+    high[x] = ub::high_bit(static_cast<uint32_t>(x));
   }
 }
 // subblock_average(ssum, limit) of ssum = 0..n-1.
@@ -185,12 +242,14 @@ def host_lib(tmp_path_factory):
     lib.bc7_stage_host.restype = ctypes.c_int
     lib.bc7_stage_host.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
     i, p = ctypes.c_int, ctypes.c_void_p
-    for name, args in (("eac_selectors_host", [i, i, p]), ("etc1_selectors_host", [p, p, i, p]),
+    for name, args in (("texel_weights_host", [i, i, p, ctypes.c_longlong, p]), ("eac_selectors_host", [i, i, p]),
+                       ("key_selectors_host", [i, ctypes.c_uint32, ctypes.c_uint32, p]), ("bit_scans_host", [i, p, p]), ("etc1_selectors_host", [p, p, i, p]),
                        ("subblock_averages_host", [i, i, p]), ("apply_bias_host", [i, i, i, i, p]),
                        ("etc1s_host", [i, p, i, p, i, p, p, p, p, ctypes.c_longlong, p])):
         fn = getattr(lib, name)
         fn.restype = None
         fn.argtypes = args
+    lib.texel_weights_host.restype = ctypes.c_int
     return lib
 
 
@@ -239,6 +298,24 @@ def test_host_build_etc_match_plain(host_lib, golden, target, mode):
     _check(host_lib, target, mode, _mode_blocks(golden, mode, 2048))
 
 
+@pytest.mark.parametrize("mode", [m for m in range(19) if m != 8])
+def test_host_texel_weight_every_pattern(host_lib, mode):
+    # the per-texel weight read (texel_weight) of every texel and plane under
+    # every pattern of the mode, against the plain decode_weights on random
+    # blocks whose pattern field holds that pattern
+    cfg = MODES[mode]
+    rng = np.random.default_rng(2000 + mode)
+    blocks = rng.integers(0, 256, (16, 16), dtype=np.uint8)
+    lanes = lanes_from_bytes(torch.from_numpy(blocks), 4)
+    tables = device_tables("cpu")
+    for pat in range(cfg.pattern_count):
+        out = np.zeros((len(blocks), cfg.weight_count), np.uint32)
+        assert host_lib.texel_weights_host(mode, pat, blocks.ctypes.data, len(blocks), out.ctypes.data) == 0
+        plain_w, _ = decode_weights(cfg, lanes, torch.full((len(blocks),), pat, dtype=torch.int64), tables)
+        np.testing.assert_array_equal(out, torch.stack(plain_w, dim=1).numpy(), err_msg=f"mode {mode} pattern {pat}")
+    assert host_lib.texel_weights_host(8, 0, blocks.ctypes.data, len(blocks), out.ctypes.data) == -1
+
+
 def test_host_fl_div255_exhaustive(host_lib):
     got = np.array([host_lib.fl_div255_host(x) for x in range(256)], np.float32)
     expect = (np.arange(256, dtype=np.float32) / np.float32(255.0)).astype(np.float32)
@@ -280,6 +357,48 @@ def test_host_eac_selector_exhaustive(host_lib):
         for mult in range(16):
             host_lib.eac_selectors_host(tbl, mult, out.ctypes.data)
             np.testing.assert_array_equal(out, eac_reference_selectors(tbl, mult), err_msg=f"table {tbl} mult {mult}")
+
+
+@pytest.mark.parametrize("nkeys", [2, 4, 8])
+def test_host_key_selector_every_key(host_lib, nkeys):
+    # K5's alpha-key lookup (one PRMT) of every key, over seeded tables of
+    # selector bytes 0..7, against the table byte it names
+    rng = np.random.default_rng(nkeys)
+    for _ in range(64):
+        table = rng.integers(0, 8, 8, dtype=np.uint8)
+        words = table.view("<u4")
+        out = np.zeros(nkeys, np.uint8)
+        host_lib.key_selectors_host(nkeys, int(words[0]), int(words[1]), out.ctypes.data)
+        np.testing.assert_array_equal(out, table[:nkeys])
+
+
+def test_host_bit_scans_exhaustive(host_lib):
+    # the lowest and highest present key of a subset, over every 16-bit mask
+    n = 1 << 16
+    low, high = np.zeros(n, np.int32), np.zeros(n, np.int32)
+    host_lib.bit_scans_host(n, low.ctypes.data, high.ctypes.data)
+    x = np.arange(1, n)
+    np.testing.assert_array_equal(low[1:], np.log2(x & -x).astype(np.int32))
+    np.testing.assert_array_equal(high[1:], np.floor(np.log2(x)).astype(np.int32))
+
+
+@pytest.mark.parametrize("mode", [m for m in range(9, 18)])
+def test_host_build_etc2_alpha_key_edges(host_lib, golden, mode):
+    # K5's alpha range from the keys present: every weight field 0, every
+    # weight field all ones, and one texel apart, so the range is one key or
+    # the extreme keys (solid EAC blocks and the min/max ends)
+    cfg = MODES[mode]
+    base = _mode_blocks(golden, mode, 256)
+    first = cfg.field_offsets["weights"]
+    cases = []
+    for fill, odd in ((0, None), (1, None), (0, 5), (1, 11)):
+        b = base.copy()
+        bits = np.unpackbits(b, axis=1, bitorder="little")
+        bits[:, first:] = fill
+        if odd is not None:
+            bits[:, first + odd * cfg.weight_bits * cfg.plane_count] ^= 1
+        cases.append(np.packbits(bits, axis=1, bitorder="little"))
+    _check(host_lib, "etc2", mode, np.ascontiguousarray(np.concatenate(cases)))
 
 
 def test_host_etc1_selector_forms(host_lib):
@@ -366,3 +485,37 @@ def test_ptxas_report_parser():
         ("etc2", 15): {"registers": 72, "stack": 0, "spill_stores": 0, "spill_loads": 0},
         ("etc1s", "rgba_alpha"): {"registers": 30, "stack": 0, "spill_stores": 0, "spill_loads": 0},
     }
+
+
+SASS_DUMP = """\
+
+Fatbin elf code:
+================
+arch = sm_90a
+code version = [1,7]
+host = linux
+compile_size = 64bit
+
+	code for sm_90a
+		Function : _ZN2ub12uastc_kernelIN12_GLOBAL__N_14RgbaILi9EEEEEvPK5uint4PKxiPvPh
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                       /* 0x00000a00ff017b82 */
+                                                                                /* 0x000fe20000000800 */
+        /*0010*/                   S2R R0, SR_TID.X ;                           /* 0x0000000000007919 */
+                                                                                /* 0x000e220000002100 */
+        /*0020*/              @!P0 EXIT ;                                       /* 0x000000000000894d */
+        /*0030*/                   BRA 0x30;                                    /* 0xfffffffc00fc7947 */
+        /*0040*/                   NOP;                                         /* 0x0000000000007918 */
+		..........
+
+		Function : _ZN2ub12etc1s_kernelILi2EEEvPKjjS2_jPKtS4_S4_S4_iPv
+        /*0000*/                   MOV R1, c[0x0][0x28] ;                       /* 0x00000a0000017a02 */
+		Function : _Z9unrelatedv
+        /*0000*/                   MOV R1, c[0x0][0x28] ;                       /* 0x00000a0000017a02 */
+"""
+
+
+def test_sass_count_parser():
+    # phase 2's static instruction count a kernel: NOP padding left out,
+    # predicated instructions and the closing self-branch counted
+    assert build.parse_sass(SASS_DUMP.splitlines()) == {("rgba", 9): 4, ("etc1s", "rgba_alpha"): 1}
