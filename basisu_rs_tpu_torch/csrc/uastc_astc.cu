@@ -7,19 +7,31 @@
 // uastc_astc.cuh and uastc_decode.cuh, the launch layout in uastc_launch.cuh.
 //
 // What bounds it on the H100: like K1, 33 bytes of HBM a block (16 in, 16
-// out, a 1-byte error flag; the dispatch's int64 index list adds 8 more)
-// against the integer work of the decode, the blue-contraction check (up
-// to 18 endpoint unquantizations), the ISE re-encode and 16-32 bit-reversed
-// weight writes: at 2^23 blocks the 33 bytes alone take 0.083 ms at
-// 3.35 TB/s.
+// out, a 1-byte error flag; the dispatch's int64 index list adds 8 more),
+// 0.083 ms at 2^23 blocks at 3.35 TB/s, against the integer work of the
+// decode, the blue-contraction check (up to 18 endpoint unquantizations)
+// and the ISE re-encode.  In the first design the weights cost most: each
+// of the 16-32 weights was extracted, given its subset's invert mask,
+// bit-reversed one bit at a time and put, 73-92% of the SASS of every mode
+// with 16 weights or more, rolled by ptxas into loops.
 //
-// What the design does about it: the same one-thread-per-block layout as
-// K1, every byte moved once, in place through the index list; the mode as a
-// template parameter, so the ISE group layout, the slice widths and every
-// weight offset are compile-time constants (no shift reaches 32: `put`
-// keeps the `w + 1 < 4` guard); the quint/trit pack LUTs (125 and 243
-// bytes) and the partition seeds are read with __ldg, since their indices
-// diverge.
+// What the design does about it: one thread per block, every byte moved
+// once, in place through the index list; the mode as a template
+// parameter, so the ISE group layout, the slice widths and every field
+// offset are compile-time constants (no shift reaches 32: `put` keeps the
+// `w + 1 < 4` guard).  The ASTC weight field is the 128-bit reversal of the
+// weight stream (uastc_decode.cuh): the UASTC weight field with a zero bit
+// put back above each anchor, at compile-time positions or, in the
+// multi-subset modes, at the pattern's one or two anchors; XORed with the
+// swapped subsets' fields (the subset map's bit a texel, times 3 for 2-bit
+// weights, spread in four shifts for 3-bit ones); then three BREVs.  The
+// weights take 4-41 instructions a block and no loop.  The quint/trit pack
+// LUTs and the partition tables are read with __ldg, since their indices
+// diverge.  Measured with chip_smoke.py and tools/csrc_ab.py (H100 80GB
+// HBM3, 700 W): the 19 launches of the 2^23-block all-mode cell 0.300 ->
+// 0.204 ms, every mode 0.008-0.013 ms; at 2^23 contiguous blocks of one
+// mode 15 of the 19 modes run at 84-86% of the HBM bound, the rest
+// (3, 4, 7, with their ISE re-encode) at 63-72% of the issue bound.
 #include "uastc_astc.cuh"
 #include "uastc_launch.cuh"
 

@@ -34,6 +34,62 @@ UB_FN void mode8_to_astc(const uint32_t (&l)[4], uint32_t (&o)[4]) {
   }
 }
 
+// ---- ASTC weights ------------------------------------------------------------
+//
+// ASTC stores weight k bit-reversed at [128-(k+1)*wb, 128-k*wb), which is
+// the 128-bit reversal of the weight stream S (weight_stream in
+// uastc_decode.cuh: weight k at [k*wb, (k+1)*wb)): three BREVs of S's
+// words fill the whole weight field.
+
+// One bit a texel (bit 2i: texel i) moved into all 3 bits of field i of a
+// stream of 3-bit weights (bits [3i, 3i + 3)): lane i moves up by i, in
+// steps of 8, 4, 2 and 1.
+UB_FN constexpr uint64_t lane_step_mask(int sh) {
+  uint64_t m = 0;
+  for (int i = 0; i < 16; ++i)
+    if (i & sh) m |= 1ull << (2 * i + (i & ~(2 * sh - 1)));
+  return m;
+}
+
+UB_FN uint64_t spread_lanes3(uint32_t lanes) {
+  uint64_t x = lanes;
+  constexpr uint64_t m8 = lane_step_mask(8), m4 = lane_step_mask(4), m2 = lane_step_mask(2), m1 = lane_step_mask(1);
+  x = (x & ~m8) | ((x & m8) << 8);
+  x = (x & ~m4) | ((x & m4) << 4);
+  x = (x & ~m2) | ((x & m2) << 2);
+  x = (x & ~m1) | ((x & m1) << 1);
+  return x * 7u;
+}
+
+// XOR every weight of a swapped subset in S with all ones.  The subset map
+// (2 bits a texel) gives one bit a texel of each subset at bit 2i; with
+// 2-bit weights that bit times 3 is the texel's field.
+template <int M>
+UB_FN void invert_stream(uint32_t (&s)[4], const bool (&inv)[Mode<M>::subsets], int32_t pat) {
+  using C = Mode<M>;
+  constexpr int wb = C::weight_bits, F = 16 * C::planes * wb;
+  if constexpr (C::format == FORMAT_LA) {
+    return;  // no blue contraction
+  } else if constexpr (C::subsets == 1) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      if (32 * j < F) s[j] ^= inv[0] ? mask(imin(32, F - 32 * j)) : 0u;
+  } else {
+    const uint32_t sp = subsets_packed<M>(pat);
+    constexpr uint32_t kLanes = 0x55555555u;
+    uint32_t lanes = (inv[0] ? ~(sp | (sp >> 1)) & kLanes : 0u) | (inv[1] ? sp & kLanes : 0u);
+    if constexpr (C::subsets == 3) lanes |= inv[2] ? (sp >> 1) & kLanes : 0u;
+    if constexpr (wb == 2) {
+      s[0] ^= lanes * 3u;
+    } else {
+      static_assert(wb == 3, "multi-subset weights are 2 or 3 bits");
+      const uint64_t m = spread_lanes3(lanes);
+      s[0] ^= static_cast<uint32_t>(m);
+      s[1] ^= static_cast<uint32_t>(m >> 32);
+    }
+  }
+}
+
 // UASTC block (4 words) -> ASTC block (4 words).  Returns the block's error
 // flag: an out-of-range pattern index (the output is still written, from the
 // clamped pattern, as the reference kernels do).
@@ -54,31 +110,28 @@ UB_FN bool uastc_to_astc(const uint32_t (&l)[4], uint32_t (&o)[4]) {
     const bool err = decode_pattern<M>(l, pat);
     int32_t tq[E], bits[E];
     decode_endpoint_digits<M>(l, tq, bits);
-    uint32_t w[16 * planes];
-    decode_weights<M>(l, pat, w);
 
     // Blue-contraction avoidance (astc.rs:55-78): where a subset's
     // unquantized lo endpoints of r, g, b sum above its hi ones, swap every
     // quantized (tq, bits) pair of the subset and invert its weights.
-    uint32_t inv_mask[nsub];
+    bool inv[nsub];
 #pragma unroll
     for (int s = 0; s < nsub; ++s) {
-      inv_mask[s] = 0u;
+      inv[s] = false;
       if constexpr (C::format != FORMAT_LA) {
         const int b = s * per_subset;
         int32_t u[6];
 #pragma unroll
         for (int k = 0; k < 6; ++k) u[k] = unquant_endpoint<C::range>(tq[b + k], bits[b + k]);
-        const bool inv = u[0] + u[2] + u[4] > u[1] + u[3] + u[5];
+        inv[s] = u[0] + u[2] + u[4] > u[1] + u[3] + u[5];
 #pragma unroll
         for (int k = b; k < b + per_subset; k += 2) {
           const int32_t t0 = tq[k], t1 = tq[k + 1], b0 = bits[k], b1 = bits[k + 1];
-          tq[k] = inv ? t1 : t0;
-          tq[k + 1] = inv ? t0 : t1;
-          bits[k] = inv ? b1 : b0;
-          bits[k + 1] = inv ? b0 : b1;
+          tq[k] = inv[s] ? t1 : t0;
+          tq[k + 1] = inv[s] ? t0 : t1;
+          bits[k] = inv[s] ? b1 : b0;
+          bits[k + 1] = inv[s] ? b0 : b1;
         }
-        inv_mask[s] = inv ? mask(wb) : 0u;
       }
     }
 
@@ -121,17 +174,14 @@ UB_FN bool uastc_to_astc(const uint32_t (&l)[4], uint32_t (&o)[4]) {
       for (int k = 0; k < E; ++k, ofs += RG::bits) put(o, static_cast<uint32_t>(bits[k]), ofs, RG::bits);
     }
 
-    // weights (astc.rs:143-178): the k-th lands bit-reversed at
-    // [128-(k+1)*wb, 128-k*wb), XOR-inverted where its subset was swapped
-    const uint32_t sp = subsets_packed<M>(pat);
-#pragma unroll
-    for (int k = 0; k < 16 * planes; ++k) {
-      const uint32_t s_k = (sp >> (2 * (k / planes))) & 3u;
-      uint32_t m = inv_mask[0];
-#pragma unroll
-      for (int s = 1; s < nsub; ++s) m = s_k == static_cast<uint32_t>(s) ? inv_mask[s] : m;
-      put(o, bitrev(w[k] ^ m, wb), 128 - (k + 1) * wb, wb);
-    }
+    // weights (astc.rs:143-178): the bit reversal of the stream, XOR-inverted
+    // where a subset was swapped, fills [128 - 16 * planes * wb, 128)
+    uint32_t st[4];
+    weight_stream<M>(l, pat, st);
+    invert_stream<M>(st, inv, pat);
+    o[3] |= brev(st[0]);
+    o[2] |= brev(st[1]);
+    o[1] |= brev(st[2]);
     if constexpr (planes != 1) {
       put(o, static_cast<uint32_t>(cs), 128 - 16 * planes * wb - 2, 2);  // CCS, not reversed
     }

@@ -25,6 +25,8 @@
 #pragma once
 #include <stdint.h>
 
+#include <type_traits>
+
 #if defined(__CUDACC__)
 #define UB_FN __device__ __forceinline__
 #define UB_TABLE static __device__ const
@@ -38,6 +40,10 @@
 #include "uastc_tables.cuh"
 
 namespace ub {
+
+// Threads a CTA of every UASTC kernel (uastc_launch.cuh); K4's key tables
+// (uastc_etc.cuh) give each thread a column of that many entries a key.
+constexpr int kThreads = 256;
 
 // ---- IEEE-single arithmetic, one rounding per operation -------------------
 
@@ -65,12 +71,77 @@ UB_FN float fsub_rn(float a, float b) {
 #endif
 }
 
+// ---- integer intrinsics, each with its host form --------------------------
+
+UB_FN uint32_t popc(uint32_t x) {
+#if defined(__CUDA_ARCH__)
+  return static_cast<uint32_t>(__popc(x));
+#else
+  return static_cast<uint32_t>(__builtin_popcount(x));
+#endif
+}
+
+// PRMT: byte k of the result is byte (s >> 4k) & 7 of the pair (b:a), a
+// holding bytes 0-3 (selector nibbles with bit 3 set, sign replication,
+// are not used here).
+UB_FN uint32_t byte_perm(uint32_t a, uint32_t b, uint32_t s) {
+#if defined(__CUDA_ARCH__)
+  return __byte_perm(a, b, s);
+#else
+  const uint64_t x = (static_cast<uint64_t>(b) << 32) | a;
+  uint32_t r = 0;
+  for (int k = 0; k < 4; ++k) r |= static_cast<uint32_t>((x >> (8 * ((s >> (4 * k)) & 7u))) & 0xFFu) << (8 * k);
+  return r;
+#endif
+}
+
+// Lowest and highest set bit of x != 0.
+UB_FN int32_t low_bit(uint32_t x) {
+#if defined(__CUDA_ARCH__)
+  return __ffs(static_cast<int>(x)) - 1;
+#else
+  return __builtin_ctz(x);
+#endif
+}
+
+UB_FN int32_t high_bit(uint32_t x) {
+#if defined(__CUDA_ARCH__)
+  return 31 - __clz(static_cast<int>(x));
+#else
+  return 31 - __builtin_clz(x);
+#endif
+}
+
+// BREV: bit i of x to bit 31 - i.
+UB_FN uint32_t brev(uint32_t x) {
+#if defined(__CUDA_ARCH__)
+  return __brev(x);
+#else
+  uint32_t r = 0;
+  for (int i = 0; i < 32; ++i) r |= ((x >> i) & 1u) << (31 - i);
+  return r;
+#endif
+}
+
+// SHF.L.W: the high word of (hi:lo) << (s & 31).
+UB_FN uint32_t funnel_shl(uint32_t lo, uint32_t hi, uint32_t s) {
+#if defined(__CUDA_ARCH__)
+  return __funnelshift_l(lo, hi, s);
+#else
+  s &= 31u;
+  return s == 0 ? hi : (hi << s) | (lo >> (32 - s));
+#endif
+}
+
 // fl(x/255) for x in 0..255 without a divide: y0 = x*257*2^-16 is exact,
 // and fl(x/255) = fl(y0 + fl(y0*K)), K = fl(2^-16/(1-2^-16)).
 UB_FN float fl_div255(int32_t x) {
   const float y0 = fmul_rn(static_cast<float>(x), 0x1.01p-8f);
   return fadd_rn(y0, fmul_rn(y0, 0x1.0001p-16f));
 }
+
+UB_FN constexpr int32_t imin(int32_t a, int32_t b) { return a < b ? a : b; }
+UB_FN constexpr int32_t imax(int32_t a, int32_t b) { return a > b ? a : b; }
 
 // ---- bit fields over four little-endian 32-bit words ----------------------
 
@@ -105,14 +176,6 @@ UB_FN void put(uint32_t (&o)[4], uint32_t value, int offset, int count) {
   const int w = offset >> 5, b = offset & 31;
   if (w < 4) o[w] |= value << b;
   if (b + count > 32 && w + 1 < 4) o[w + 1] |= value >> (32 - b);
-}
-
-// Reverse the low `count` bits of v.
-UB_FN uint32_t bitrev(uint32_t v, int count) {
-  uint32_t out = 0u;
-#pragma unroll
-  for (int i = 0; i < count; ++i) out |= ((v >> i) & 1u) << (count - 1 - i);
-  return out;
 }
 
 // ---- UASTC field decode (ops/uastc_decode.py) -----------------------------
@@ -270,6 +333,64 @@ UB_FN void decode_weights(const uint32_t (&l)[4], int32_t pat,
   for (int i = 0; i < 16; ++i) {
 #pragma unroll
     for (int p = 0; p < planes; ++p) w[planes * i + p] = texel_weight<M>(l, abp, i, p);
+  }
+}
+
+// ---- the weight stream --------------------------------------------------------
+//
+// The stream S holds weight k (decode order, k = planes*i + plane) at
+// [k*wb, (k+1)*wb): the UASTC weight field with a zero bit put back above
+// each anchor's field, since UASTC stores an anchor's weight one bit
+// short.  K2 writes its bit reversal as the ASTC weight field; K4 reads
+// each texel's weights from it at compile-time offsets.
+
+// S += its bits from p up: a zero bit at p, the bits from p moved up one.
+template <class T>
+UB_FN T insert_zero(T s, uint32_t p) {
+  return s + (s & (~T(0) << p));
+}
+
+// Mode M's weight stream S in words s[0..2] (at most 80 bits; bits past
+// 16 * planes * wb and s[3] are 0, so extract() reads it as a block).
+// pat: the clamped pattern.
+template <int M>
+UB_FN void weight_stream(const uint32_t (&l)[4], int32_t pat, uint32_t (&s)[4]) {
+  using C = Mode<M>;
+  constexpr int wb = C::weight_bits, planes = C::planes, base = C::ofs_weights, F = 16 * planes * wb;
+  s[3] = 0u;
+  if constexpr (!C::multi) {
+    // texel 0 is the only anchor, its planes fields first: S bits from
+    // planes * wb up are the UASTC bits from base - planes up
+#pragma unroll
+    for (int j = 0; j < 3; ++j) s[j] = 32 * j < F ? extract(l, base - planes + 32 * j, imin(32, F - 32 * j)) : 0u;
+    uint32_t lo = extract(l, base, wb - 1);
+    if constexpr (planes == 2) lo |= extract(l, base + wb - 1, wb - 1) << wb;
+    s[0] = (s[0] & ~mask(planes * wb)) | lo;
+  } else {
+    // single-plane, F <= 48: texel 0 is an anchor, and the pattern's other
+    // anchors (one or two) come in ascending order
+    static_assert(planes == 1 && F <= 64, "multi-subset modes are single-plane");
+    using T = typename std::conditional<(F <= 32), uint32_t, uint64_t>::type;
+    using Fam = Family<C::fam>;
+    constexpr int n = F - Fam::n_anchors;  // the UASTC field's bits
+    T v = extract(l, base, imin(32, n));
+    if constexpr (n > 32) v |= static_cast<T>(extract(l, base + 32, n - 32)) << 32;
+    v = insert_zero(v, wb - 1);
+    const uint32_t ap = UB_LDG(&FAM_ANCHORS_PACKED[Fam::base + pat]);  // anchor texel of subset k: nibble k
+    if constexpr (Fam::n_anchors == 2) {
+      const uint32_t a = (ap | (ap >> 4)) & 15u;  // one nibble is texel 0
+      v = insert_zero(v, wb * a + wb - 1);
+    } else {
+      static_assert(Fam::n_anchors == 3, "two or three subsets");
+      const uint32_t a0 = ap & 15u, a1 = (ap >> 4) & 15u, a2 = (ap >> 8) & 15u;
+      const uint32_t hi = a0 > a1 ? (a0 > a2 ? a0 : a2) : (a1 > a2 ? a1 : a2);
+      const uint32_t lo = a0 + a1 + a2 - hi;  // one of the three is texel 0
+      v = insert_zero(v, wb * lo + wb - 1);
+      v = insert_zero(v, wb * hi + wb - 1);
+    }
+    s[0] = static_cast<uint32_t>(v);
+    s[1] = F > 32 ? static_cast<uint32_t>(static_cast<uint64_t>(v) >> 32) : 0u;
+    s[2] = 0u;
   }
 }
 

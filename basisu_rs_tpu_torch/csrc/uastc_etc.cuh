@@ -5,7 +5,8 @@
 // Port of basisu_rs_tpu/ops/etc.py (uastc_to_etc1_mode, uastc_to_etc2_mode),
 // mirroring convert_block_from_uastc (reference:
 // src/target_formats/etc.rs:32-341).  The texels come from K3's decode
-// (decode_block, texel_channels in uastc_rgba.cuh); the plain PyTorch version is
+// (decode_block in uastc_rgba.cuh), through a table of each RGB key's
+// colour or texel_channels a texel; the plain PyTorch version is
 // basisu_rs_tpu_torch/ops/etc.py.  Like the other .cuh files, this source
 // also compiles with g++ for the CPU tests.
 //
@@ -26,6 +27,9 @@
 //   - An alpha key's selector stands for every texel of that key only
 //     because the alpha is a function of (subset, weight) alone; the EAC
 //     range (min, max) is over the keys present, not over all keys.
+//   - The packed quad sums hold 10-bit lanes (a quad sum is at most 1020);
+//     a subblock's sums (at most 2040) add r and b in one word and g in
+//     another, so no lane carries into the next.
 #pragma once
 #include <string.h>
 
@@ -35,8 +39,6 @@ namespace ub {
 
 UB_FN int32_t color_5_to_8(int32_t c) { return (c << 3) | (c >> 2); }
 UB_FN int32_t color_4_to_8(int32_t c) { return (c << 4) | c; }
-UB_FN int32_t imin(int32_t a, int32_t b) { return a < b ? a : b; }
-UB_FN int32_t imax(int32_t a, int32_t b) { return a > b ? a : b; }
 
 UB_FN float bits_to_float(uint32_t u) {
 #if defined(__CUDA_ARCH__)
@@ -56,20 +58,37 @@ UB_FN void selector_ms_ls(uint32_t sel, uint32_t& ms, uint32_t& ls) {
   ls = (hi ^ sel ^ 1u) & 1u;
 }
 
-// A texel's wire bits in the ETC1 selector word at pixel id `pid`
-// (etc.rs:363-393): byte 0 holds the MSBs of pixels 8..15, byte 1 those of
-// 0..7, bytes 2 and 3 the LSBs likewise.
-UB_FN uint32_t selector_wire_bits(uint32_t ms, uint32_t ls, int pid) {
-  const int ms_byte = 1 - pid / 8, bit = pid % 8;
-  return (ms << (8 * ms_byte + bit)) | (ls << (8 * (ms_byte + 2) + bit));
+// The wire bits of a texel's selector from its luminance and its
+// subblock's three non-decreasing thresholds, each as the sign bit (bit 31)
+// of a word: the hits c1 >= c2 >= c3 are nested, sel = c1 + c2 + c3, so
+// ms = !c2 = lum < th[1] and ls = c3 | !c1 = lum >= th[2] || lum < th[0].
+// Luminances and thresholds lie in 0..130,560, so no difference overflows.
+UB_FN uint32_t etc1_ms_sign(int32_t lum, const int32_t (&th)[3]) { return static_cast<uint32_t>(lum - th[1]); }
+
+UB_FN uint32_t etc1_ls_sign(int32_t lum, const int32_t (&th)[3]) {
+  return static_cast<uint32_t>(lum - th[0]) | ~static_cast<uint32_t>(lum - th[2]);
 }
 
-// The wire bits of a texel's selector from its luminance and its
-// subblock's three non-decreasing thresholds: the hits c1 >= c2 >= c3 are
-// nested, sel = c1 + c2 + c3, so ms = !c2 and ls = c3 | !c1.
-UB_FN void etc1_selector(int32_t lum, const int32_t (&th)[3], uint32_t& ms, uint32_t& ls) {
-  ms = lum < th[1] ? 1u : 0u;
-  ls = (lum >= th[2] || lum < th[0]) ? 1u : 0u;
+// The ETC1 selector word (etc.rs:363-393) of 16 texels (raster order u =
+// y*4 + x) from their luminances and the thresholds of their 2x2 quads
+// (qy*2 + qx).  Texel u sits at pixel id (u%4)*4 + u/4; byte 0 holds the
+// MSBs of pixel ids 8..15, byte 1 those of 0..7, bytes 2 and 3 the LSBs
+// likewise.  Each wire bit is shifted in from the sign of its word (one
+// SHF.L.W), LSBs first, each half in pixel-id order 7..0, 15..8, so the
+// last bit of a half (pixel id 8) lands at its bit 0: no compare, no
+// select, no per-bit placement.
+UB_FN uint32_t etc1_selector_word(const int32_t (&lum)[16], const int32_t (&tq)[4][3]) {
+  uint32_t w = 0;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int pid = j < 8 ? 7 - j : 23 - j;
+      const int u = (pid % 4) * 4 + pid / 4, qd = (u / 8) * 2 + (u % 4) / 2;
+      w = funnel_shl(half == 0 ? etc1_ls_sign(lum[u], tq[qd]) : etc1_ms_sign(lum[u], tq[qd]), w, 1);
+    }
+  }
+  return w;
 }
 
 // The ETC hint fields (uastc.rs:411-441).  Modes 10-12 carry no bc1h1 and
@@ -127,14 +146,6 @@ UB_FN void eac_thresholds(int32_t center, int32_t mult, uint32_t m0, uint32_t m1
   T[3] = kill_lo ? T[4] : T[3];
 }
 
-UB_FN uint32_t popc(uint32_t x) {
-#if defined(__CUDA_ARCH__)
-  return static_cast<uint32_t>(__popc(x));
-#else
-  return static_cast<uint32_t>(__builtin_popcount(x));
-#endif
-}
-
 // The thresholds of a block as lane constants of eac_selector: three
 // 10-bit lanes 255 + T[k] (k = 0..2), three of 2 * (256 - T[k]) (k = 4..6)
 // and 256 - T[3].
@@ -189,37 +200,6 @@ UB_FN void eac_words(int32_t center, int32_t etc2tm, uint32_t hi24, uint32_t lo2
   w1 = (lo >> 24) | ((lo >> 8) & 0xFF00u) | ((lo & 0xFF00u) << 8) | ((lo & 0xFFu) << 24);
   if (amin == amax) solid_alpha_block(static_cast<uint32_t>(amin), w0, w1);
   if (etc2tm == 0) solid_alpha_block(255u, w0, w1);
-}
-
-// PRMT: byte k of the result is byte (s >> 4k) & 7 of the pair (b:a), a
-// holding bytes 0-3 (selector nibbles with bit 3 set, sign replication,
-// are not used here).
-UB_FN uint32_t byte_perm(uint32_t a, uint32_t b, uint32_t s) {
-#if defined(__CUDA_ARCH__)
-  return __byte_perm(a, b, s);
-#else
-  const uint64_t x = (static_cast<uint64_t>(b) << 32) | a;
-  uint32_t r = 0;
-  for (int k = 0; k < 4; ++k) r |= static_cast<uint32_t>((x >> (8 * ((s >> (4 * k)) & 7u))) & 0xFFu) << (8 * k);
-  return r;
-#endif
-}
-
-// Lowest and highest set bit of x != 0.
-UB_FN int32_t low_bit(uint32_t x) {
-#if defined(__CUDA_ARCH__)
-  return __ffs(static_cast<int>(x)) - 1;
-#else
-  return __builtin_ctz(x);
-#endif
-}
-
-UB_FN int32_t high_bit(uint32_t x) {
-#if defined(__CUDA_ARCH__)
-  return 31 - __clz(static_cast<int>(x));
-#else
-  return 31 - __builtin_clz(x);
-#endif
 }
 
 // Alpha keys: a texel's alpha is a function of its subset and its
@@ -281,22 +261,30 @@ UB_FN void mode8_etc1(const uint32_t (&l)[4], uint32_t& w0, uint32_t& w1) {
 // most 64260 * 32897 < 2^31.
 UB_FN int32_t subblock_average(int32_t ssum, int32_t limit) { return ((ssum * limit + 1020) * 32897) >> 26; }
 
-// The bias nudge of one channel (etc.rs:203-259); field = delta + 2.
+// The bias nudge of one channel (etc.rs:203-259); field = delta + 2.  The
+// three cases are selects, the first that holds last, so the six nudges
+// of a block take no branch.
 UB_FN int32_t apply_bias(int32_t v, int32_t field, int32_t limit) {
   const int32_t plain = v + field - 2;
-  if (v == 0) return (field - 1) & 3;  // delta + 1, except delta -2 -> 3
-  if (v == limit) return plain - 1;
-  return plain < 0 ? v + 2 : plain;  // only plain == -1 (v 1, delta -2) wraps
+  int32_t r = plain < 0 ? v + 2 : plain;  // only plain == -1 (v 1, delta -2) wraps
+  r = v == limit ? plain - 1 : r;
+  return v == 0 ? (field - 1) & 3 : r;  // delta + 1, except delta -2 -> 3
 }
 
-// The ETC1 block of a non-mode-8 block from its flags, the four 2x2-quad
-// channel sums q[qy*2 + qx][c] and the 16 texel luminances (etc.rs:78-200).
-// Each texel u writes its selector at the static pixel id (u%4)*4 + u/4 in
-// both orientations; the flip bit only chooses whose thresholds it meets
-// (its row pair under flip, its column pair otherwise), which differ only on
-// the two off-diagonal quads.
+// A texel's RGB packed for the 2x2-quad sums, r | g << 10 | b << 20: a
+// quad's sum is at most 1020 a lane, so one add a texel sums all three.
+UB_FN uint32_t pack_quad_rgb(int32_t r, int32_t g, int32_t b) {
+  return static_cast<uint32_t>(r) | (static_cast<uint32_t>(g) << 10) | (static_cast<uint32_t>(b) << 20);
+}
+
+// The ETC1 block of a non-mode-8 block from its flags, the four packed
+// 2x2-quad RGB sums q[qy*2 + qx] and the 16 texel luminances
+// (etc.rs:78-200).  Each texel u writes its selector at the static pixel id
+// (u%4)*4 + u/4 in both orientations; the flip bit only chooses whose
+// thresholds it meets (its row pair under flip, its column pair otherwise),
+// which differ only on the two off-diagonal quads.
 template <int M>
-UB_FN void etc1_block(const EtcFlags& f, const int32_t (&q)[4][3], const int32_t (&lum)[16], uint32_t& w0,
+UB_FN void etc1_block(const EtcFlags& f, const uint32_t (&q)[4], const int32_t (&lum)[16], uint32_t& w0,
                       uint32_t& w1) {
   constexpr bool has_bias = !(M >= 10 && M <= 12);
   const bool flip = f.flip != 0, diff = f.diff != 0;
@@ -305,10 +293,15 @@ UB_FN void etc1_block(const EtcFlags& f, const int32_t (&q)[4][3], const int32_t
   int32_t c[2][3];
 #pragma unroll
   for (int sb = 0; sb < 2; ++sb) {
+    // subblock sb is quads {0, 1} / {2, 3} under flip, {0, 2} / {1, 3}
+    // otherwise; its sums (at most 2040) add r and b in one word, g in another
+    const uint32_t x = q[3 * sb], y = sb == 0 ? (flip ? q[1] : q[2]) : (flip ? q[2] : q[1]);
+    const uint32_t rb = (x & 0x3FF003FFu) + (y & 0x3FF003FFu), g = (x & 0xFFC00u) + (y & 0xFFC00u);
+    const int32_t ssums[3] = {static_cast<int32_t>(rb & 0x7FFu), static_cast<int32_t>(g >> 10),
+                              static_cast<int32_t>(rb >> 20)};
 #pragma unroll
     for (int ch = 0; ch < 3; ++ch) {
-      const int32_t ssum = flip ? q[2 * sb][ch] + q[2 * sb + 1][ch] : q[sb][ch] + q[2 + sb][ch];
-      const int32_t avg = subblock_average(ssum, limit);
+      const int32_t avg = subblock_average(ssums[ch], limit);
       c[sb][ch] = has_bias ? apply_bias(avg, static_cast<int32_t>((bias_word >> (2 * (3 * sb + ch))) & 3u), limit)
                            : avg;
     }
@@ -357,32 +350,143 @@ UB_FN void etc1_block(const EtcFlags& f, const int32_t (&q)[4][3], const int32_t
     tq[2][k] = flip ? th[1][k] : th[0][k];
     tq[3][k] = th[1][k];
   }
-  w1 = 0;
+  w1 = etc1_selector_word(lum, tq);
+}
+
+UB_FN int32_t texel_luminance(int32_t r, int32_t g, int32_t b) { return r * 108 + g * 366 + b * 38; }
+
+// Fold texel i's RGB into the ETC1 inputs: its packed 2x2-quad sum and its
+// luminance.
+UB_FN void fold_texel(int i, const int32_t (&ch)[4], uint32_t (&q)[4], int32_t (&lum)[16]) {
+  q[(i / 8) * 2 + (i % 4) / 2] += pack_quad_rgb(ch[0], ch[1], ch[2]);
+  lum[i] = texel_luminance(ch[0], ch[1], ch[2]);
+}
+
+// ---- RGB key tables --------------------------------------------------------
+//
+// A texel's RGB is a function of its key alone: (subset << wb) | weight in
+// a single-plane mode, (plane-1 weight << wb) | plane-0 weight in a
+// dual-plane one.  Where a mode has at most kMaxRgbKeys keys, the block's
+// lerp runs once a key, with the subset and the weight known at compile
+// time (no subset select, the unquantized weight an immediate), into a
+// table of (packed quad RGB, luminance) a key; each texel then costs its
+// key, one 8-byte load and one add.  Every mode but 18 (32 keys) takes the
+// table: at 16 keys (4-bit weights, two 3-bit subsets, two 2-bit planes)
+// it was faster than the lerp a texel in one A/B run (tools/csrc_ab.py;
+// PERF.md).
+constexpr int kMaxRgbKeys = 16;
+
+template <int M>
+struct RgbKeys {
+  using C = Mode<M>;
+  static constexpr int count = C::planes == 2 ? 1 << (2 * C::weight_bits) : C::subsets << C::weight_bits;
+  static constexpr bool tabled = M != 8 && count <= kMaxRgbKeys;
+};
+
+// Texel i's RGB key from the block's weight stream st (weight_stream) and
+// subset map sp: its weights, both planes, are one field of the stream.
+template <int M>
+UB_FN uint32_t rgb_key(const uint32_t (&st)[4], uint32_t sp, int i) {
+  using C = Mode<M>;
+  constexpr int kb = C::planes * C::weight_bits;
+  const uint32_t w = extract(st, kb * i, kb);
+  if constexpr (C::subsets > 1) return w | (((sp >> (2 * i)) & 3u) << C::weight_bits);
+  else return w;
+}
+
+// The RGB of key k (compile-time after unrolling) from b's lerp.
+template <int M>
+UB_FN void key_rgb(const BlockLerp<M>& b, int k, int32_t (&ch)[3]) {
+  using C = Mode<M>;
+  constexpr int wb = C::weight_bits;
+  const int32_t u0 = unquant_weight<wb>(k & ((1 << wb) - 1));
+  if constexpr (C::planes == 2) {
+    const int32_t u1 = unquant_weight<wb>(k >> wb);
 #pragma unroll
-  for (int u = 0; u < 16; ++u) {
-    const int qd = (u / 8) * 2 + (u % 4) / 2;
-    uint32_t ms, ls;
-    etc1_selector(lum[u], tq[qd], ms, ls);
-    w1 |= selector_wire_bits(ms, ls, (u % 4) * 4 + u / 4);
+    for (int c = 0; c < 3; ++c) ch[c] = interp_eval(b.L0[0][c], b.D[0][c], b.cs == c ? u1 : u0);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) ch[c] = interp_eval(b.L0[k >> wb][c], b.D[k >> wb][c], u0);
   }
 }
 
-// Fold texel i's RGB into the ETC1 inputs: its 2x2-quad channel sums and
-// its luminance.
-UB_FN void fold_texel(int i, const int32_t (&ch)[4], int32_t (&q)[4][3], int32_t (&lum)[16]) {
-  const int qd = (i / 8) * 2 + (i % 4) / 2;
-  q[qd][0] += ch[0];
-  q[qd][1] += ch[1];
-  q[qd][2] += ch[2];
-  lum[i] = ch[0] * 108 + ch[1] * 366 + ch[2] * 38;
+// A thread's key table.  On the card: column threadIdx.x of a [key][thread]
+// array in shared memory, 8 bytes an entry, so the 8-byte loads of a
+// half-warp, whatever keys they name, meet 32 distinct banks (32 KiB a CTA
+// at 16 keys).  On the host: two arrays.
+#if defined(__CUDA_ARCH__)
+template <int N>
+__device__ __forceinline__ uint2* rgb_key_column() {
+  __shared__ uint2 table[N * kThreads];
+  return table + threadIdx.x;
 }
 
-// Stream the block's texels into the ETC1 inputs (quad sums, luminances).
+template <int N>
+struct RgbKeyTable {
+  uint2* col;
+  __device__ __forceinline__ RgbKeyTable() : col(rgb_key_column<N>()) {}
+  __device__ __forceinline__ void set(int k, uint32_t rgb, int32_t lum) {
+    col[k * kThreads] = make_uint2(rgb, static_cast<uint32_t>(lum));
+  }
+  __device__ __forceinline__ void get(uint32_t k, uint32_t& rgb, int32_t& lum) const {
+    const uint2 e = col[k * kThreads];
+    rgb = e.x;
+    lum = static_cast<int32_t>(e.y);
+  }
+};
+#else
+template <int N>
+struct RgbKeyTable {
+  uint32_t rgbs[N];
+  int32_t lums[N];
+  void set(int k, uint32_t rgb, int32_t lum) {
+    rgbs[k] = rgb;
+    lums[k] = lum;
+  }
+  void get(uint32_t k, uint32_t& rgb, int32_t& lum) const {
+    rgb = rgbs[k];
+    lum = lums[k];
+  }
+};
+#endif
+
+// Fill t with every key's (packed quad RGB, luminance) of b's lerp.
 template <int M>
-UB_FN bool etc_texels(const uint32_t (&l)[4], int32_t (&q)[4][3], int32_t (&lum)[16]) {
+UB_FN void fill_rgb_keys(const BlockLerp<M>& b, RgbKeyTable<RgbKeys<M>::count>& t) {
 #pragma unroll
-  for (int k = 0; k < 4; ++k) q[k][0] = q[k][1] = q[k][2] = 0;
-  return for_each_texel<M, 3>(l, [&](int i, const int32_t (&ch)[4]) { fold_texel(i, ch, q, lum); });
+  for (int k = 0; k < RgbKeys<M>::count; ++k) {
+    int32_t ch[3];
+    key_rgb<M>(b, k, ch);
+    t.set(k, pack_quad_rgb(ch[0], ch[1], ch[2]), texel_luminance(ch[0], ch[1], ch[2]));
+  }
+}
+
+// Stream the block's texels into the ETC1 inputs (packed quad sums,
+// luminances): through the key table where the mode has one, else the
+// lerp a texel.
+template <int M>
+UB_FN bool etc_texels(const uint32_t (&l)[4], uint32_t (&q)[4], int32_t (&lum)[16]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) q[k] = 0;
+  if constexpr (RgbKeys<M>::tabled) {
+    BlockLerp<M> b;
+    const bool err = decode_block<M, 3>(l, b);
+    int32_t pat;
+    decode_pattern<M>(l, pat);
+    uint32_t st[4];
+    weight_stream<M>(l, pat, st);
+    RgbKeyTable<RgbKeys<M>::count> t;
+    fill_rgb_keys<M>(b, t);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      uint32_t rgb;
+      t.get(rgb_key<M>(st, b.sp, i), rgb, lum[i]);
+      q[(i / 8) * 2 + (i % 4) / 2] += rgb;
+    }
+    return err;
+  } else {
+    return for_each_texel<M, 3>(l, [&](int i, const int32_t (&ch)[4]) { fold_texel(i, ch, q, lum); });
+  }
 }
 
 // The EAC block of an alpha mode's block (M not 8, alpha format) and the
@@ -394,14 +498,14 @@ UB_FN bool etc_texels(const uint32_t (&l)[4], int32_t (&q)[4][3], int32_t (&lum)
 // its selector; with 16 keys (4-bit weights) pass 2 searches each texel's
 // alpha instead.  No texel's alpha is kept.
 template <int M>
-UB_FN bool etc2_alpha_texels(const uint32_t (&l)[4], int32_t etc2tm, int32_t (&q)[4][3], int32_t (&lum)[16],
+UB_FN bool etc2_alpha_texels(const uint32_t (&l)[4], int32_t etc2tm, uint32_t (&q)[4], int32_t (&lum)[16],
                              uint32_t& w0, uint32_t& w1) {
   using C = Mode<M>;
   constexpr int wb = C::weight_bits, nkeys = C::subsets << wb;
   BlockLerp<M> b;
   const bool err = decode_block<M, 4>(l, b);
 #pragma unroll
-  for (int k = 0; k < 4; ++k) q[k][0] = q[k][1] = q[k][2] = 0;
+  for (int k = 0; k < 4; ++k) q[k] = 0;
   uint32_t kmin = nkeys - 1, kmax = 0, present = 0;  // one subset: key range; two: keys present
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
@@ -461,7 +565,8 @@ UB_FN bool uastc_to_etc1(const uint32_t (&l)[4], uint32_t (&o)[2]) {
     mode8_etc1(l, o[0], o[1]);
     return false;
   } else {
-    int32_t q[4][3], lum[16];
+    uint32_t q[4];
+    int32_t lum[16];
     const bool err = etc_texels<M>(l, q, lum);
     etc1_block<M>(decode_trans_flags<M>(l), q, lum, o[0], o[1]);
     return err;
@@ -476,7 +581,8 @@ UB_FN bool uastc_to_etc2(const uint32_t (&l)[4], uint32_t (&o)[4]) {
     mode8_etc1(l, o[2], o[3]);
     return false;
   } else {
-    int32_t q[4][3], lum[16];
+    uint32_t q[4];
+    int32_t lum[16];
     const EtcFlags f = decode_trans_flags<M>(l);
     bool err;
     if constexpr (Mode<M>::format != FORMAT_RGB) {

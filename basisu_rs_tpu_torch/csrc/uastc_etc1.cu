@@ -10,17 +10,31 @@
 // What bounds it on the H100: the function needs 25 bytes of HBM a block
 // (16 in, 8 out, a 1-byte error flag; the dispatch's int64 index list adds
 // 8 more): at 2^23 blocks 0.063 ms at 3.35 TB/s.  Against that stands the
-// whole RGB decode of K3 plus the encode: 16 luminance dot products, the
-// subblock averages, the bias rule, two 4-level palettes and 48 threshold
-// compares, all integer.
+// instruction count: the RGB decode of 16 texels (in the multi-subset modes
+// a select over the subsets for each channel's lerp), 16 luminances, the
+// subblock averages, the bias rule, two 4-level palettes and 16 selectors,
+// all integer: 525-1,199 SASS instructions a block with a lerp and a
+// compare-select search a texel, issue-bound at 66-79% of the issue rate.
 //
 // What the design does about it: one thread per block, one 16-byte load and
-// one 8-byte store, in place through the index list.  The texels stream:
-// each texel's RGB is folded into four 2x2-quad sums and its luminance as
-// soon as K3's lerp yields it, so no 16 x 3 array of channels stays live;
-// the flip bit only selects which quad sums form a subblock and which
-// thresholds the two off-diagonal quads meet, once per block.  The four ETC
-// tables (under 0.4 KB) are read with __ldg.
+// one 8-byte store, in place through the index list.  A texel's RGB is a
+// function of its (subset, weight) or (weight, weight) key, so in every mode
+// of at most 16 keys (all but mode 18) the lerp runs once a key, with the
+// subset and the weight known at compile time, into a per-thread table of
+// (RGB packed for the quad sums, luminance) in shared memory, [key][thread]
+// so a warp's loads meet no bank twice; each texel then costs its key (one
+// field of the weight stream, its subset ORed in), one 8-byte load and one
+// add into its packed 2x2-quad sum.  The flip bit only selects which quad
+// sums form a subblock and which thresholds the two off-diagonal quads
+// meet, once per block; the bias rule is selects, not branches; each
+// selector's two wire bits are the signs of luminance minus threshold,
+// shifted into the selector word by SHF.L.W in pixel-id order.  The four
+// ETC tables (under 0.4 KB) are read with __ldg.  Measured with
+// chip_smoke.py and tools/csrc_ab.py (H100 80GB HBM3, 700 W): 511-913
+// instructions a block outside mode 8, 48 registers; the 19 launches of
+// the 2^23-block all-mode cell 0.349 -> 0.287 ms; at 2^23 contiguous
+// blocks every mode but 8 runs at 79-87% of its issue bound: still
+// issue-bound.
 #include "uastc_etc.cuh"
 #include "uastc_launch.cuh"
 

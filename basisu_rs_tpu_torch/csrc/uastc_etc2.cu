@@ -17,24 +17,25 @@
 // issue bound (blocks / 32 x SASS instructions over 132 SMs x 4 issue
 // slots) and under 40% of its HBM bound.
 //
-// What the design does about it: cut the instructions.  K4's streaming
-// layout for the ETC1 half.  The EAC half takes two passes over the
-// texels' alpha keys (subset, alpha-plane weight), which name each texel's
-// alpha: pass 1 keeps only the range of keys present, since the lerp is
-// monotone in the weight; the selectors are searched once a key (up to 8
-// keys) into a byte table that pass 2 reads with one PRMT a texel, or once
-// a texel where 4-bit weights make 16 keys.  The search itself is
-// branch-free: three lanes a multiply-add hold a - T[k], and the selector
-// is a popcount of their top bits (uastc_etc.cuh).  No texel's alpha is
-// kept.  Measured with chip_smoke.py (H100 80GB HBM3, 700 W):
-// the 19 launches take 0.411 ms against 0.499 ms before (alpha texels
-// packed four a word, a 3-level compare search a texel that ptxas spread
-// over 62 predicate spills in mode 17: 1,107-1,496 SASS instructions and
-// 79-115 registers in the alpha modes, now 809-1,353 and 40-80); each alpha
-// mode takes 1.28-1.40x K4's time on the same mode, against 1.62-2.14x.
-// Capping the old design's registers instead (__launch_bounds__(256, 3)
-// or (256, 4)) spilled 8-216 bytes in the alpha modes and saved under 2%
-// (tools/csrc_ab.py, same card).
+// What the design does about it: cut the instructions.  The ETC1 half is
+// K4's (uastc_etc1.cu): RGB key tables in the RGB modes, packed quad sums,
+// the branch-free bias rule and the selector word.  The EAC half takes two
+// passes over the texels' alpha keys (subset, alpha-plane weight), which
+// name each texel's alpha: pass 1 keeps only the range of keys present,
+// since the lerp is monotone in the weight; the selectors are searched
+// once a key (up to 8 keys) into a byte table that pass 2 reads with one
+// PRMT a texel, or once a texel where 4-bit weights make 16 keys.  The
+// search itself is branch-free: three lanes a multiply-add hold a - T[k],
+// and the selector is a popcount of their top bits (uastc_etc.cuh).  No
+// texel's alpha is kept.  Measured with chip_smoke.py and tools/csrc_ab.py
+// (H100 80GB HBM3, 700 W): the 19 launches take 0.364 ms; 0.409 with K4's
+// earlier ETC1 half (a lerp and a compare-select search a texel); 0.499
+// before the alpha keys (alpha texels packed four a word, a 3-level compare
+// search a texel that ptxas spread over 62 predicate spills in mode 17:
+// 1,107-1,496 SASS instructions and 79-115 registers in the alpha modes,
+// then 809-1,353 and 40-80).  Capping that design's registers instead
+// (__launch_bounds__(256, 3) or (256, 4)) spilled 8-216 bytes in the alpha
+// modes and saved under 2% (tools/csrc_ab.py, same card).
 #include "uastc_etc.cuh"
 #include "uastc_launch.cuh"
 

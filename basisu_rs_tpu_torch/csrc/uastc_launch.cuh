@@ -38,8 +38,6 @@
 
 namespace ub {
 
-constexpr int kThreads = 256;
-
 // Staged-row slot of chunk c (0..3) of a warp's row r (0..31), 16-byte units.
 __device__ __forceinline__ int staged_chunk(int r, int c) { return 4 * r + (c ^ ((r >> 1) & 3)); }
 

@@ -12,7 +12,9 @@ launch and the 19 together (device time, median of 10, twice: the
 variants in order, then in reverse).  Each line gives a variant's sums and,
 per mode, its time, registers, spill-store bytes and SASS instructions.
 `--dump 9,13` writes the SASS of those modes' kernels to OUT (default
-`basisu_rs_tpu_torch/build/csrc_ab/`) for reading.
+`basisu_rs_tpu_torch/build/csrc_ab/`) for reading, and the same SASS
+annotated with the inlined source lines (a second build with -lineinfo,
+`nvdisasm --print-line-info-inline`), which `tools/sass_split.py` reads.
 Every variant runs in the same call, on the same card, so their times
 compare; a time from another call does not.  Importing this module runs
 nothing; the timing needs a card and nvcc.
@@ -22,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 import statistics
 import subprocess
 from pathlib import Path
@@ -36,6 +39,42 @@ from ..utils.profiling import event_times_ms
 FIXTURE = Path(__file__).resolve().parents[2] / "tests" / "fixtures" / "golden_blocks.npz"
 N_BLOCKS = 1 << 23
 REPS = 10
+
+
+def dump_lines(src: Path, targets, out: Path, dump_modes) -> None:
+    """Write the line-annotated SASS of src's dump_modes kernels of each
+    target to out/lines_<src>_<target>_<mode>.txt: a -lineinfo cubin (the
+    package's nvcc flags otherwise) through nvdisasm."""
+    nvcc = build.nvcc_path()
+    cubins = [out / f"{src.name}_{t}.cubin" for t in targets]
+    procs = [subprocess.Popen([nvcc, *build.NVCC_FLAGS, "-lineinfo", "-cubin", "-I", str(src), "-o", str(c),
+                               str(src / f"uastc_{t}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for t, c in zip(targets, cubins)]
+    logs = [p.communicate()[0] for p in procs]
+    for t, c, p, log in zip(targets, cubins, procs, logs):
+        if p.returncode:
+            raise RuntimeError(f"-lineinfo build of {src} {t} failed:\n{log}")
+        text = subprocess.run([str(Path(nvcc).with_name("nvdisasm")), "--print-line-info-inline", "-c", str(c)],
+                              check=True, capture_output=True, text=True).stdout
+        for (target, mode), lines in split_functions(text.splitlines(keepends=True)).items():
+            if target == t and mode in dump_modes:
+                (out / f"lines_{src.name}_{t}_{mode}.txt").write_text("".join(lines))
+
+
+_SECTION = re.compile(r"^\s*\.section\s+\.text\.([^,\s]+)")
+
+
+def split_functions(lines) -> dict:
+    """{(target, mode): lines} of nvdisasm output, one entry a kernel."""
+    out: dict = {}
+    cur = None
+    for line in lines:
+        m = _SECTION.match(line)
+        if m:
+            cur = build._kernel_key(m.group(1))
+        if cur is not None:
+            out.setdefault(cur, []).append(line)
+    return out
 
 
 def build_variant(src: Path, targets, out: Path, dump_modes):
@@ -78,12 +117,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("targets")
     ap.add_argument("dirs", nargs="+", type=Path)
-    ap.add_argument("--dump", default="", help="comma list of modes whose SASS to write")
+    ap.add_argument("--dump", default="", help="comma list of modes whose SASS (plain and line-annotated) to write")
     ap.add_argument("--out", type=Path, default=build.BUILD / "csrc_ab")
     args = ap.parse_args(argv)
     targets = args.targets.split(",")
     args.out.mkdir(parents=True, exist_ok=True)
     dump_modes = {int(m) for m in args.dump.split(",") if m}
+    if dump_modes:
+        for d in args.dirs:
+            dump_lines(d, targets, args.out, dump_modes)
 
     dev = torch.device("cuda")
     golden = np.load(FIXTURE)

@@ -10,11 +10,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   2. nvcc build of csrc/*.cu for sm_90a (one nvcc per source, in parallel),
      with seconds and the ptxas register/spill report of all 193 kernels
      (K1 BC7, K2 ASTC, K3 RGBA, K4 ETC1, K5 ETC2, x 19 UASTC modes; K6-K9,
-     the four ETC1S kinds; the 93 T1 stage kernels; the probe P); for K3,
-     K4 and K5 per mode also the resident warps per SM (the CUDA runtime's
-     occupancy calculator) and the static SASS instruction count
-     (cuobjdump -sass of the built library), and 0 B of spills required of
-     K3 and K5;
+     the four ETC1S kinds; the 93 T1 stage kernels; the probe P); for K1-K5
+     per mode also the resident warps per SM (the CUDA runtime's occupancy
+     calculator) and the static SASS instruction count (cuobjdump -sass of
+     the built library), and 0 B of spills required of K1-K5;
   3. per UASTC mode 0-18: the BC7 kernel against its plain PyTorch version
      on the card, on that mode's golden blocks plus 65,536 seeded random
      blocks of the mode (invalid pattern indices included), with and
@@ -96,7 +95,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
  22. the CLI on the card: `python -m basisu_rs_tpu_torch selftest` as a
      subprocess, `info` of a file, and `transcode --container ktx2|ktx|png`
      whose files equal the writers applied to the readers' output;
- 23. K3, K4 and K5 per mode on 2^23 contiguous blocks of that mode (its
+ 23. K1-K5 per mode on 2^23 contiguous blocks of that mode (its
      golden blocks tiled, no index), each output bit-exact against the
      tiled golden outputs, timed beside its HBM bound and its issue bound
      (2^23 / 32 warps x phase 2's SASS count over 132 SMs x 4 issue slots
@@ -150,8 +149,7 @@ PROBE_BYTES = 8  # an int32 in, a float32 out
 CORPUS_SIZES = ((6, 1024), (6, 2048), (24, 2048))  # (textures, width): ~2^19, ~2^21, ~2^23 blocks
 ETC1S_FILES, ETC1S_FILE_SLICES = 64, 2  # phase 20: 64 files x 2 slices x 65,536 blocks = 2^23
 PIPE_UASTC, PIPE_ETC1S, PIPE_WIDTH = 64, 16, 1024  # phase 21's corpus
-SHAPE_TARGETS = ("rgba", "etc1", "etc2")  # K3-K5: phase 2's shape report and phase 23
-KERNEL_THREADS = 256  # threads a CTA of the UASTC kernels (csrc/uastc_launch.cuh kThreads)
+KERNEL_THREADS = 256  # threads a CTA of the UASTC kernels (csrc/uastc_decode.cuh kThreads)
 ISSUE_SLOTS = 4  # warp instructions an SM issues a cycle (four schedulers)
 
 
@@ -572,7 +570,7 @@ def sm_clock_mhz() -> float:
 
 
 def contiguous_modes(kernels, dev, card: str, golden_in, golden_out, block_bytes, shape, phase_ms, counts) -> None:
-    """Phase 23: K3, K4 and K5 per mode on N_FULL contiguous blocks of that
+    """Phase 23: K1-K5 per mode on N_FULL contiguous blocks of that
     mode (its golden blocks tiled) with no index, each output checked
     against the tiled golden outputs; beside each time its HBM bound and
     its issue bound, N_FULL / 32 warps x the SASS count of phase 2 over the
@@ -583,7 +581,7 @@ def contiguous_modes(kernels, dev, card: str, golden_in, golden_out, block_bytes
     clock = sm_clock_mhz()
     golden = torch.from_numpy(golden_in).to(dev)
     modes = block_modes(golden)
-    for t in SHAPE_TARGETS:
+    for t in TARGETS:
         gold_out = torch.from_numpy(np.ascontiguousarray(golden_out[t])).to(dev)
         k_out = torch.empty(N_FULL, gold_out.shape[1], dtype=torch.uint8, device=dev)
         k_err = torch.empty(N_FULL, dtype=torch.bool, device=dev)
@@ -929,11 +927,10 @@ def main() -> int:
     print("phase 2 ptxas json " + json.dumps({f"{t}/{m}": v for (t, m), v in sorted(ptxas.items(), key=str)}))
     sass = build.sass_counts()
     shape = {}  # (target, mode) -> (registers, resident warps per SM, SASS instructions)
-    for t in SHAPE_TARGETS:
+    for t in TARGETS:
         for m in range(19):
             r = ptxas[(t, m)]
-            if t != "etc1":
-                require(r["spill_stores"] == 0 and r["spill_loads"] == 0, f"{t} mode {m} spills: {r}")
+            require(r["spill_stores"] == 0 and r["spill_loads"] == 0, f"{t} mode {m} spills: {r}")
             require((t, m) in sass, f"no SASS for {t} mode {m}")
             shape[(t, m)] = (r["registers"], kernels.resident_warps(t, m), sass[(t, m)])
             print(f"  shape uastc_kernel<{OP_NAME[t]}<{m}>>: {shape[(t, m)][0]} registers, {shape[(t, m)][1]} resident "
@@ -1279,7 +1276,7 @@ def main() -> int:
     timed(21, lambda: pipeline_phase(dev, card, full_np, endpoints, selectors, read_to_rgba, basis))
     timed(22, lambda: cli_phase(card, full_np, endpoints, selectors))
     timed(23, lambda: contiguous_modes(kernels, dev, card, golden_in, golden_out, block_bytes, shape,
-                                       {t: results[t]["mode_ms"] for t in SHAPE_TARGETS}, counts))
+                                       {t: results[t]["mode_ms"] for t in TARGETS}, counts))
 
     result = {
         "kernels": [

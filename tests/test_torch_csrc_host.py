@@ -9,11 +9,13 @@ calls them over ctypes and holds every mode, ETC1S kind and (mode, stage)
 against the plain PyTorch versions (tolerance 0): shift, signedness and
 table-index faults show here without a card.  Exhaustive pins cover the
 small helpers: the per-texel weight read of every (mode, pattern, texel,
-plane), the EAC selector search, K5's alpha-key lookup and bit scans, the
-ETC1 selector forms, the subblock average and the bias rule; K5's alpha
-range is held at its edges (one key, the extreme keys).  The package never
-loads this build; it skips only when g++ is absent.  The last tests check
-the ptxas report and SASS count parsers of `ops/build.py` on canned
+plane), K2's weight stream and invert mask of every (mode, pattern), K4's
+RGB key tables, the EAC selector search, K5's alpha-key lookup and bit
+scans, the ETC1 selector forms and selector word, the subblock average and
+the bias rule; K5's alpha range is held at its edges (one key, the extreme
+keys).  The package never loads this build; it skips only when g++ is
+absent.  The last tests check the ptxas report and SASS count parsers of
+`ops/build.py` and the SASS split of `tools/sass_split.py` on canned
 output."""
 
 import ctypes
@@ -27,8 +29,9 @@ import torch
 from basisu_rs_tpu.tables import np_tables
 from basisu_rs_tpu_torch.ops import bc7_stages, build, etc1s, fl_div255_probe, kernels
 from basisu_rs_tpu_torch.ops.bits import lanes_from_bytes
-from basisu_rs_tpu_torch.ops.uastc_decode import decode_weights
-from basisu_rs_tpu_torch.tables import MODES, device_tables
+from basisu_rs_tpu_torch.ops.uastc_decode import decode_weights, subsets_for_texels
+from basisu_rs_tpu_torch.tables import LA, MODES, device_tables
+import oracle_uastc as ou
 from torch_cases import bias_reference, eac_reference_selectors, etc1_selector_cases, etc1s_inputs
 
 HOST_ENTRY = r"""
@@ -153,14 +156,107 @@ extern "C" void eac_selectors_host(int tbl, int mult, uint8_t* out) {
     for (int a = 0; a < 256; ++a) out[256 * center + a] = static_cast<uint8_t>(ub::eac_selector(a, lanes));
   }
 }
-// ETC1 wire bits ms | ls << 1 of n (luminance, 3 thresholds) cases.
+// ETC1 wire bits ms | ls << 1 of n (luminance, 3 thresholds) cases, from
+// the sign bits of etc1_ms_sign and etc1_ls_sign.
 extern "C" void etc1_selectors_host(const int* lum, const int* th, int n, uint8_t* out) {
   for (int k = 0; k < n; ++k) {
     const int32_t t[3] = {th[3 * k], th[3 * k + 1], th[3 * k + 2]};
-    uint32_t ms, ls;
-    ub::etc1_selector(lum[k], t, ms, ls);
-    out[k] = static_cast<uint8_t>(ms | (ls << 1));
+    out[k] = static_cast<uint8_t>((ub::etc1_ms_sign(lum[k], t) >> 31) | ((ub::etc1_ls_sign(lum[k], t) >> 31) << 1));
   }
+}
+// etc1_selector_word of n cases of 16 luminances and 4 x 3 quad thresholds.
+extern "C" void etc1_selector_words_host(const int* lum, const int* tq, int n, uint32_t* out) {
+  for (int k = 0; k < n; ++k) {
+    int32_t l[16], t[4][3];
+    for (int i = 0; i < 16; ++i) l[i] = lum[16 * k + i];
+    for (int q = 0; q < 4; ++q)
+      for (int j = 0; j < 3; ++j) t[q][j] = tq[12 * k + 3 * q + j];
+    out[k] = ub::etc1_selector_word(l, t);
+  }
+}
+
+// K2's weight stream of mode M under pattern pat over n blocks (3 words a
+// block), and its invert mask: invert_stream<M> of a zero stream with the
+// subsets whose bit is set in inv_bits swapped.
+template <int M>
+static void stream_run(int pat, int inv_bits, const uint8_t* in, long long n, uint32_t* out, uint32_t* inv_out) {
+  for (long long t = 0; t < n; ++t) {
+    uint32_t l[4], s[4];
+    memcpy(l, in + 16 * t, 16);
+    ub::weight_stream<M>(l, pat, s);
+    memcpy(out + 3 * t, s, 12);
+  }
+  bool inv[ub::Mode<M>::subsets];
+  for (int s = 0; s < ub::Mode<M>::subsets; ++s) inv[s] = (inv_bits >> s) & 1;
+  uint32_t m[4] = {0, 0, 0, 0};
+  ub::invert_stream<M>(m, inv, pat);
+  memcpy(inv_out, m, 12);
+}
+typedef void (*StreamFn)(int, int, const uint8_t*, long long, uint32_t*, uint32_t*);
+template <int M>
+static StreamFn stream_fn() {
+  if constexpr (M == 8) return nullptr;
+  else return stream_run<M>;
+}
+static const StreamFn kStream[19] = {
+    stream_fn<0>(),  stream_fn<1>(),  stream_fn<2>(),  stream_fn<3>(),  stream_fn<4>(),
+    stream_fn<5>(),  stream_fn<6>(),  stream_fn<7>(),  stream_fn<8>(),  stream_fn<9>(),
+    stream_fn<10>(), stream_fn<11>(), stream_fn<12>(), stream_fn<13>(), stream_fn<14>(),
+    stream_fn<15>(), stream_fn<16>(), stream_fn<17>(), stream_fn<18>()};
+extern "C" int weight_stream_host(int mode, int pat, int inv_bits, const uint8_t* in, long long n, uint32_t* out,
+                                  uint32_t* inv_out) {
+  if (kStream[mode] == nullptr) return -1;
+  kStream[mode](pat, inv_bits, in, n, out, inv_out);
+  return 0;
+}
+
+// K4's RGB key table over n blocks of mode M: per texel its key, the
+// (packed quad RGB, luminance) the table gives for it, and the same from
+// texel_channels; returns -1 for a mode without a table.
+template <int M>
+static void rgb_keys_run(const uint8_t* in, long long n, uint32_t* key, uint32_t* tab, uint32_t* lerp) {
+  for (long long t = 0; t < n; ++t) {
+    uint32_t l[4];
+    memcpy(l, in + 16 * t, 16);
+    ub::BlockLerp<M> b;
+    ub::decode_block<M, 3>(l, b);
+    int32_t pat;
+    ub::decode_pattern<M>(l, pat);
+    uint32_t st[4];
+    ub::weight_stream<M>(l, pat, st);
+    ub::RgbKeyTable<ub::RgbKeys<M>::count> table;
+    ub::fill_rgb_keys<M>(b, table);
+    for (int i = 0; i < 16; ++i) {
+      const long long r = 16 * t + i;
+      key[r] = ub::rgb_key<M>(st, b.sp, i);
+      uint32_t rgb;
+      int32_t lum;
+      table.get(key[r], rgb, lum);
+      tab[2 * r] = rgb;
+      tab[2 * r + 1] = static_cast<uint32_t>(lum);
+      int32_t ch[4];
+      ub::texel_channels<M, 3>(l, b, i, ch);
+      lerp[2 * r] = ub::pack_quad_rgb(ch[0], ch[1], ch[2]);
+      lerp[2 * r + 1] = static_cast<uint32_t>(ub::texel_luminance(ch[0], ch[1], ch[2]));
+    }
+  }
+}
+typedef void (*RgbKeysFn)(const uint8_t*, long long, uint32_t*, uint32_t*, uint32_t*);
+template <int M>
+static RgbKeysFn rgb_keys_fn() {
+  if constexpr (!ub::RgbKeys<M>::tabled) return nullptr;
+  else return rgb_keys_run<M>;
+}
+static const RgbKeysFn kRgbKeys[19] = {
+    rgb_keys_fn<0>(),  rgb_keys_fn<1>(),  rgb_keys_fn<2>(),  rgb_keys_fn<3>(),  rgb_keys_fn<4>(),
+    rgb_keys_fn<5>(),  rgb_keys_fn<6>(),  rgb_keys_fn<7>(),  rgb_keys_fn<8>(),  rgb_keys_fn<9>(),
+    rgb_keys_fn<10>(), rgb_keys_fn<11>(), rgb_keys_fn<12>(), rgb_keys_fn<13>(), rgb_keys_fn<14>(),
+    rgb_keys_fn<15>(), rgb_keys_fn<16>(), rgb_keys_fn<17>(), rgb_keys_fn<18>()};
+extern "C" int rgb_keys_host(int mode, const uint8_t* in, long long n, uint32_t* key, uint32_t* tab,
+                             uint32_t* lerp) {
+  if (kRgbKeys[mode] == nullptr) return -1;
+  kRgbKeys[mode](in, n, key, tab, lerp);
+  return 0;
 }
 // key_selector<NKEYS> of every key k < NKEYS from the table (tab0, tab1).
 extern "C" void key_selectors_host(int nkeys, uint32_t tab0, uint32_t tab1, uint8_t* out) {
@@ -245,11 +341,16 @@ def host_lib(tmp_path_factory):
     for name, args in (("texel_weights_host", [i, i, p, ctypes.c_longlong, p]), ("eac_selectors_host", [i, i, p]),
                        ("key_selectors_host", [i, ctypes.c_uint32, ctypes.c_uint32, p]), ("bit_scans_host", [i, p, p]), ("etc1_selectors_host", [p, p, i, p]),
                        ("subblock_averages_host", [i, i, p]), ("apply_bias_host", [i, i, i, i, p]),
-                       ("etc1s_host", [i, p, i, p, i, p, p, p, p, ctypes.c_longlong, p])):
+                       ("etc1s_host", [i, p, i, p, i, p, p, p, p, ctypes.c_longlong, p]),
+                       ("etc1_selector_words_host", [p, p, i, p])):
         fn = getattr(lib, name)
         fn.restype = None
         fn.argtypes = args
     lib.texel_weights_host.restype = ctypes.c_int
+    lib.weight_stream_host.restype = ctypes.c_int
+    lib.weight_stream_host.argtypes = [i, i, i, p, ctypes.c_longlong, p, p]
+    lib.rgb_keys_host.restype = ctypes.c_int
+    lib.rgb_keys_host.argtypes = [i, p, ctypes.c_longlong, p, p, p]
     return lib
 
 
@@ -314,6 +415,108 @@ def test_host_texel_weight_every_pattern(host_lib, mode):
         plain_w, _ = decode_weights(cfg, lanes, torch.full((len(blocks),), pat, dtype=torch.int64), tables)
         np.testing.assert_array_equal(out, torch.stack(plain_w, dim=1).numpy(), err_msg=f"mode {mode} pattern {pat}")
     assert host_lib.texel_weights_host(8, 0, blocks.ctypes.data, len(blocks), out.ctypes.data) == -1
+
+
+def _field_int(words) -> int:
+    """The little-endian int of a sequence of 32-bit words."""
+    return sum(int(w) << (32 * j) for j, w in enumerate(words))
+
+
+@pytest.mark.parametrize("mode", [m for m in range(19) if m != 8])
+def test_host_weight_stream_every_pattern(host_lib, mode):
+    # K2's weight stream under every pattern of the mode (so every anchor
+    # position): S holds the plain decode_weights' weight k at [k*wb,
+    # (k+1)*wb), its 128-bit reversal equals the per-weight form (each
+    # weight bit-reversed at [128-(k+1)*wb, 128-k*wb)), and the invert mask
+    # of every set of swapped subsets equals the per-texel masks
+    cfg = MODES[mode]
+    wb, planes, nsub = cfg.weight_bits, cfg.plane_count, cfg.subset_count
+    rng = np.random.default_rng(3000 + mode)
+    blocks = rng.integers(0, 256, (16, 16), dtype=np.uint8)
+    lanes = lanes_from_bytes(torch.from_numpy(blocks), 4)
+    tables = device_tables("cpu")
+    for pat in range(cfg.pattern_count):
+        pats = torch.full((len(blocks),), pat, dtype=torch.int64)
+        plain_w, _ = decode_weights(cfg, lanes, pats, tables)
+        plain_w = torch.stack(plain_w, dim=1).numpy()
+        subsets = [int(s[0]) for s in subsets_for_texels(cfg, pats, tables)] if nsub > 1 else [0] * 16
+        for inv_bits in range(1 << nsub):
+            out = np.zeros((len(blocks), 3), np.uint32)
+            inv = np.zeros(3, np.uint32)
+            assert host_lib.weight_stream_host(mode, pat, inv_bits, blocks.ctypes.data, len(blocks), out.ctypes.data,
+                                               inv.ctypes.data) == 0
+            swapped = [(inv_bits >> subsets[k // planes]) & 1 and cfg.format != LA for k in range(16 * planes)]
+            expect_inv = sum(((1 << wb) - 1) << (k * wb) for k in range(16 * planes) if swapped[k])
+            assert _field_int(inv) == expect_inv, f"mode {mode} pattern {pat} swapped subsets {inv_bits:b}"
+        for t in range(len(blocks)):
+            stream = _field_int(out[t])
+            expect = sum(int(w) << (k * wb) for k, w in enumerate(plain_w[t]))
+            assert stream == expect, f"mode {mode} pattern {pat} block {t}"
+            reversed_ = int(f"{stream:0128b}"[::-1], 2)
+            per_weight = sum(int(f"{int(w):0{wb}b}"[::-1], 2) << (128 - (k + 1) * wb)
+                             for k, w in enumerate(plain_w[t]))
+            assert reversed_ == per_weight, f"mode {mode} pattern {pat} block {t}"
+    assert host_lib.weight_stream_host(8, 0, 0, blocks.ctypes.data, len(blocks), out.ctypes.data,
+                                       inv.ctypes.data) == -1
+
+
+@pytest.mark.parametrize("mode", range(19))
+def test_host_rgb_key_table(host_lib, golden, mode):
+    # K4's RGB key table, in the modes that have one: every texel's entry
+    # (packed quad RGB, luminance) equals texel_channels on that texel and
+    # the plain RGBA version's texel; every key is met
+    blocks = _mode_blocks(golden, mode, 2048)
+    n = len(blocks)
+    key = np.zeros((n, 16), np.uint32)
+    tab, lerp = np.zeros((n, 16, 2), np.uint32), np.zeros((n, 16, 2), np.uint32)
+    rc = host_lib.rgb_keys_host(mode, blocks.ctypes.data, n, key.ctypes.data, tab.ctypes.data, lerp.ctypes.data)
+    cfg = MODES[mode]
+    nkeys = (1 << 2 * cfg.weight_bits) if cfg.plane_count == 2 else cfg.subset_count << cfg.weight_bits
+    if mode == 8 or nkeys > 16:
+        assert rc == -1
+        return
+    assert rc == 0
+    np.testing.assert_array_equal(tab, lerp, err_msg=f"mode {mode}")
+    rgba = torch.zeros(n, 64, dtype=torch.uint8)
+    kernels.PLAIN["rgba"](mode, torch.from_numpy(blocks), None, rgba, torch.zeros(n, dtype=torch.bool))
+    ch = rgba.numpy().reshape(n, 16, 4).astype(np.uint32)
+    np.testing.assert_array_equal(tab[..., 0], ch[..., 0] | (ch[..., 1] << 10) | (ch[..., 2] << 20))
+    np.testing.assert_array_equal(tab[..., 1], ch[..., 0] * 108 + ch[..., 1] * 366 + ch[..., 2] * 38)
+    assert set(np.unique(key)) == set(range(nkeys)), f"mode {mode}: keys met {sorted(set(np.unique(key)))}"
+
+
+def _selector_word_reference(lum, tq):
+    """The ETC1 selector word of one block: texel u (raster order) at pixel
+    id (u%4)*4 + u//4, its selector the count of its quad's thresholds it
+    reaches, through SELECTOR_ID_TO_ETC1 (etc.rs:181-190, 363-393)."""
+    word = 0
+    for u in range(16):
+        th = tq[(u // 8) * 2 + (u % 4) // 2]
+        mod_id = ou._SELECTOR_ID_TO_ETC1[int((lum[u] >= th).sum())]
+        pid = (u % 4) * 4 + u // 4
+        bit = 8 * (1 - pid // 8) + pid % 8
+        word |= ((mod_id >> 1) << bit) | ((mod_id & 1) << (bit + 16))
+    return word
+
+
+def test_host_etc1_selector_word(host_lib):
+    # the whole selector word (sign bits shifted in by SHF.L.W) against the
+    # per-texel reference placement, on seeded luminances around seeded
+    # non-decreasing thresholds (ties included) and at their extremes
+    rng = np.random.default_rng(7)
+    n = 4096
+    tq = np.sort(rng.integers(0, 130561, (n, 4, 3)), axis=2).astype(np.int32)
+    tq[: n // 4] = np.sort(rng.integers(0, 8, (n // 4, 4, 3)), axis=2)
+    lum = rng.integers(0, 130561, (n, 16)).astype(np.int32)
+    lum[: n // 4] = rng.integers(0, 9, (n // 4, 16))
+    lum[n // 4: n // 2] = np.take_along_axis(tq[n // 4: n // 2].reshape(-1, 12),
+                                             rng.integers(0, 12, (n // 4, 16)), axis=1)
+    lum[-8:], tq[-8:] = 130560, 130560
+    lum, tq = np.ascontiguousarray(lum), np.ascontiguousarray(tq)
+    out = np.zeros(n, np.uint32)
+    host_lib.etc1_selector_words_host(lum.ctypes.data, tq.ctypes.data, n, out.ctypes.data)
+    expect = np.array([_selector_word_reference(lum[k], tq[k]) for k in range(n)], np.uint32)
+    np.testing.assert_array_equal(out, expect)
 
 
 def test_host_fl_div255_exhaustive(host_lib):
@@ -519,3 +722,64 @@ def test_sass_count_parser():
     # phase 2's static instruction count a kernel: NOP padding left out,
     # predicated instructions and the closing self-branch counted
     assert build.parse_sass(SASS_DUMP.splitlines()) == {("rgba", 9): 4, ("etc1s", "rgba_alpha"): 1}
+
+
+def _source_line(name: str, text: str) -> int:
+    """The 1-based line of csrc/name that holds text."""
+    lines = (build.CSRC / name).read_text().splitlines()
+    return next(i for i, line in enumerate(lines, 1) if text in line)
+
+
+@pytest.mark.parametrize("target, frames, part", [
+    ("astc", [("uastc_decode.cuh", "uint32_t val = (w < 4 ? l[w] : 0u) >> b;"), ("uastc_astc.cuh", "o[3] |= brev(st[0]);")], "weights"),
+    ("astc", [("uastc_astc.cuh", "decode_endpoint_digits<M>(l, tq, bits);")], "decode"),
+    ("astc", [("uastc_astc.cuh", "const uint32_t packed = quints ?")], "encode"),
+    ("astc", [("uastc_launch.cuh", "err[row] = e ? 1 : 0;")], "launch"),
+    ("etc1", [("uastc_etc.cuh", "w = funnel_shl(")], "emit"),
+    ("etc1", [("uastc_etc.cuh", "return v == 0 ?"), ("uastc_etc.cuh", "c[sb][ch] = has_bias")], "encode"),
+    ("etc1", [("uastc_rgba.cuh", "b.abp = weight_anchors<M>(pat);"), ("uastc_etc.cuh", "fill_rgb_keys<M>(b, t);")],
+     "decode"),
+])
+def test_sass_split_parts(target, frames, part):
+    # tools/sass_split.py on nvdisasm --print-line-info-inline text: a
+    # chain of frames (one //## line a frame, innermost first) names the
+    # part of the instructions below it; NOPs are left out
+    from basisu_rs_tpu_torch.tools import sass_split
+
+    chain = [f'\t//## File "/build/csrc/{f}", line {_source_line(f, t)}' for f, t in frames]
+    text = chain + ["        /*0010*/                   IMAD R2, R2, 0x100, R3 ;",
+                    "        /*0020*/               @P0 EXIT ;", "        /*0030*/                   NOP;"]
+    parts = sass_split.split(sass_split.Source(build.CSRC), target, text)
+    assert dict(parts) == {part: {"IMAD": 1, "EXIT": 1}}
+
+
+def test_sass_split_functions(tmp_path):
+    # the function spans the split reads off a source: templates, structs
+    # and one-line functions; namespaces and tables are not functions
+    src = tmp_path / "x.cuh"
+    src.write_text("namespace ub {\n"
+                   "UB_TABLE uint8_t T[2] = {\n  1, 2\n};\n"
+                   "template <int M>\n"
+                   "UB_FN int32_t f(int32_t a) {\n  if (a) {\n    return 1;\n  }\n  return 0;\n}\n"
+                   "struct S {\n  int32_t a;\n};\n"
+                   "UB_FN int32_t g(int32_t a) { return a; }\n"
+                   "}  // namespace ub\n")
+    from basisu_rs_tpu_torch.tools import sass_split
+
+    assert sass_split.functions(src) == [("f", 5, 11), ("S", 12, 14), ("g", 15, 15)]
+
+
+def test_csrc_ab_split_functions():
+    # tools/csrc_ab.py cuts nvdisasm output into one text a UASTC kernel,
+    # each from its .section line; other functions are dropped
+    from basisu_rs_tpu_torch.tools import csrc_ab
+
+    text = ["\t.section\t.text._ZN2ub12uastc_kernelIN12_GLOBAL__N_14AstcILi17EEEEEvPK5uint4PKxiPvPh,\"ax\",@progbits\n",
+            "        /*0000*/                   LDC R1, c[0x0][0x28] ;\n",
+            "\t.section\t.text._Z9unrelatedv,\"ax\",@progbits\n",
+            "        /*0000*/                   EXIT ;\n",
+            "\t.section\t.text._ZN2ub12uastc_kernelIN12_GLOBAL__N_14Etc1ILi3EEEEEvPK5uint4PKxiPvPh,\"ax\",@progbits\n",
+            "        /*0000*/                   EXIT ;\n"]
+    parts = csrc_ab.split_functions(text)
+    assert sorted(parts) == [("astc", 17), ("etc1", 3)]
+    assert parts[("astc", 17)] == text[:2] and parts[("etc1", 3)] == text[4:]
