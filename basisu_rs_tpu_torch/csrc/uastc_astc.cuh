@@ -41,26 +41,6 @@ UB_FN void mode8_to_astc(const uint32_t (&l)[4], uint32_t (&o)[4]) {
 // uastc_decode.cuh: weight k at [k*wb, (k+1)*wb)): three BREVs of S's
 // words fill the whole weight field.
 
-// One bit a texel (bit 2i: texel i) moved into all 3 bits of field i of a
-// stream of 3-bit weights (bits [3i, 3i + 3)): lane i moves up by i, in
-// steps of 8, 4, 2 and 1.
-UB_FN constexpr uint64_t lane_step_mask(int sh) {
-  uint64_t m = 0;
-  for (int i = 0; i < 16; ++i)
-    if (i & sh) m |= 1ull << (2 * i + (i & ~(2 * sh - 1)));
-  return m;
-}
-
-UB_FN uint64_t spread_lanes3(uint32_t lanes) {
-  uint64_t x = lanes;
-  constexpr uint64_t m8 = lane_step_mask(8), m4 = lane_step_mask(4), m2 = lane_step_mask(2), m1 = lane_step_mask(1);
-  x = (x & ~m8) | ((x & m8) << 8);
-  x = (x & ~m4) | ((x & m4) << 4);
-  x = (x & ~m2) | ((x & m2) << 2);
-  x = (x & ~m1) | ((x & m1) << 1);
-  return x * 7u;
-}
-
 // XOR every weight of a swapped subset in S with all ones.  The subset map
 // (2 bits a texel) gives one bit a texel of each subset at bit 2i; with
 // 2-bit weights that bit times 3 is the texel's field.

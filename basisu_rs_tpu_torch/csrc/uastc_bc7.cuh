@@ -164,6 +164,77 @@ UB_FN void mode8_to_bc7(const uint32_t (&l)[4], uint32_t (&o)[4]) {
   }
 }
 
+// ---- the BC7 weight field as one word ------------------------------------
+//
+// Where the BC7 weight width equals the UASTC one and the mode has one plane
+// (modes 0-4, 7, 9, 10, 15, 16), the BC7 weight field is the weight stream
+// S (weight_stream in uastc_decode.cuh: weight k at [k*wb, (k+1)*wb), a zero
+// bit put back above each UASTC anchor) with two edits, in one word:
+//   - the fields of each BC7 subset j >= 1 whose anchor weight's MSB is set
+//     are XORed with all ones (bc7.rs:171-195).  That MSB is S's bit
+//     wb*a_j + wb - 1, a_j the subset's BC7 anchor texel; where a_j is also a
+//     UASTC anchor S holds its zero bit there, so the subset never inverts;
+//   - the MSB of texel 0 and of each BC7 anchor, now 0, is dropped again,
+//     the highest first: BC7 stores an anchor's weight one bit short.
+// The field then goes out in one put at its compile-time offset.  The other
+// modes (remapped weights, two planes) put texel by texel.
+
+template <int M>
+constexpr bool kWordWeights = M != 8 && Mode<M>::planes == 1 &&
+                              Mode<M>::weight_bits == Bc7Mode<Mode<M>::bc7>::weight_bits;
+
+// The BC7 weight field of word-weights mode M (16*wb - subsets bits) and the
+// invert flag of each BC7 subset (inv[0] is always false).  pat: the clamped
+// pattern.
+template <int M>
+UB_FN uint64_t bc7_weight_word(const uint32_t (&l)[4], int32_t pat, bool (&inv)[3]) {
+  using C = Mode<M>;
+  using B = Bc7Mode<C::bc7>;
+  static_assert(kWordWeights<M>, "the BC7 weight field is one word only where the widths match");
+  constexpr int wb = C::weight_bits, nsub7 = B::subset_count, F = 16 * wb;
+  inv[0] = inv[1] = inv[2] = false;
+  if constexpr (nsub7 == 1) {
+    // texel 0 is the only anchor of both formats: the UASTC field as it is
+    return extract64(l, C::ofs_weights, F - 1);
+  } else {
+    using T = typename std::conditional<(F <= 32), uint32_t, uint64_t>::type;
+    const int row = Family<C::fam>::base + pat;
+    uint32_t st[4];
+    weight_stream<M>(l, pat, st);
+    T s = st[0];
+    if constexpr (F > 32) s |= static_cast<T>(st[1]) << 32;
+
+    // BC7 subsets j >= 1: the invert flag from the anchor's MSB, then the
+    // inverted subsets' fields XORed with all ones
+    const uint32_t ap = UB_LDG(&FAM_BC7_ANCHORS_PACKED[row]);  // anchor texel of subset j: nibble j
+    const uint32_t sp = UB_LDG(&FAM_BC7_PAT_PACKED[row]);      // texel -> BC7 subset, 2 bits a texel
+    const uint32_t a1 = (ap >> 4) & 15u, a2 = (ap >> 8) & 15u;
+    constexpr uint32_t kLanes = 0x55555555u;
+    inv[1] = ((s >> (wb * a1 + wb - 1)) & 1u) != 0u;
+    uint32_t lanes = inv[1] ? sp & kLanes : 0u;
+    if constexpr (nsub7 == 3) {
+      inv[2] = ((s >> (wb * a2 + wb - 1)) & 1u) != 0u;
+      lanes |= inv[2] ? (sp >> 1) & kLanes : 0u;
+    }
+    if constexpr (wb == 2) {
+      s ^= lanes * 3u;
+    } else {
+      static_assert(wb == 3, "multi-subset weights are 2 or 3 bits");
+      s ^= spread_lanes3(lanes);
+    }
+
+    // drop the anchors' zero MSBs, the highest texel first; texel 0 last
+    if constexpr (nsub7 == 3) {
+      const uint32_t hi = a1 > a2 ? a1 : a2, lo = a1 + a2 - hi;
+      s = remove_zero(s, wb * hi + wb - 1);
+      s = remove_zero(s, wb * lo + wb - 1);
+    } else {
+      s = remove_zero(s, wb * a1 + wb - 1);
+    }
+    return remove_zero(s, wb - 1);
+  }
+}
+
 // ---- the block transcode --------------------------------------------------
 
 // UASTC block (4 words) -> BC7 block (4 words).  Returns the block's error
@@ -187,22 +258,19 @@ UB_FN bool uastc_to_bc7(const uint32_t (&l)[4], uint32_t (&o)[4]) {
 
     int32_t ep[C::endpoint_count];
     decode_endpoints<M>(l, ep);
-    uint32_t w[16 * planes];
-    decode_weights<M>(l, pat, w);
-#pragma unroll
-    for (int k = 0; k < 16 * planes; ++k) w[k] = remap_weight<C::weight_bits, wb7>(w[k]);
-
     int32_t pr[nsub][2][4];  // [subset][lo/hi][rgba]
     endpoint_pairs<M>(ep, pr);
 
     put(o, 1u << C::bc7, 0, C::bc7 + 1);
     int ofs = C::bc7 + 1;
     int32_t lo[nsub7][4], hi[nsub7][4];
+    [[maybe_unused]] uint64_t wfield = 0;  // the weight field of the multi-subset modes
+    [[maybe_unused]] bool inv[3];
 
     if constexpr (nsub7 != 1) {
+      static_assert(kWordWeights<M>, "every multi-subset mode writes its weights as one word");
       using F = Family<C::fam>;
       const int row = F::base + pat;
-      const uint32_t pat_packed = UB_LDG(&FAM_BC7_PAT_PACKED[row]);
       const uint32_t perm = UB_LDG(&FAM_PERM_PACKED[row]);
       put(o, UB_LDG(&FAM_BC7_INDEX[row]), ofs, B::pat_bits);
       ofs += B::pat_bits;
@@ -224,30 +292,17 @@ UB_FN bool uastc_to_bc7(const uint32_t (&l)[4], uint32_t (&o)[4]) {
         }
       }
 
-      // Swap endpoints and invert weights of BC7 subset j >= 1 where its
-      // anchor weight's MSB is set (bc7.rs:171-195).  That MSB is the raw
-      // stored bit at a per-pattern position (valid flag in bit 7).
-      const uint32_t inv_packed = UB_LDG(&FAM_BC7_INV_RELPOS_PACKED[C::inv_base + pat]);
-      uint32_t inv_mask[3] = {0u, 0u, 0u};
+      // Swap the endpoints of BC7 subset j >= 1 where its anchor weight's
+      // MSB is set (bc7.rs:171-195); the weight field comes inverted
+      wfield = bc7_weight_word<M>(l, pat, inv);
 #pragma unroll
       for (int s = 1; s < nsub7; ++s) {
-        const uint32_t entry = (inv_packed >> (8 * (s - 1))) & 0xFFu;
-        const int rlo = s == 1 ? C::inv_lo1 : C::inv_lo2, rhi = s == 1 ? C::inv_hi1 : C::inv_hi2;
-        const uint32_t bit = extract_bit_dyn(l, (entry & 63u) + C::ofs_weights,
-                                             C::ofs_weights + rlo, C::ofs_weights + rhi + 1);
-        const bool inv = (bit & (entry >> 7)) != 0u;
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int32_t a = lo[s][c], b = hi[s][c];
-          lo[s][c] = inv ? b : a;
-          hi[s][c] = inv ? a : b;
+          lo[s][c] = inv[s] ? b : a;
+          hi[s][c] = inv[s] ? a : b;
         }
-        inv_mask[s] = inv ? mask(wb7) : 0u;
-      }
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const uint32_t s_i = (pat_packed >> (2 * i)) & 3u;
-        w[i] ^= s_i == 1u ? inv_mask[1] : s_i == 2u ? inv_mask[2] : 0u;
       }
     } else {
       // single subset: the anchor is texel 0, stored with one bit less, so
@@ -318,28 +373,19 @@ UB_FN bool uastc_to_bc7(const uint32_t (&l)[4], uint32_t (&o)[4]) {
     }
 
     // weights (bc7.rs:296-307); anchors are written with one bit less
-    if constexpr (nsub7 == 1) {
+    if constexpr (kWordWeights<M>) {
+      if constexpr (nsub7 == 1) wfield = bc7_weight_word<M>(l, pat, inv);
+      put64(o, wfield, ofs, 16 * wb7 - nsub7);
+    } else {
+      // one subset, remapped weights or two planes: texel by texel, each
+      // weight read where it is written, plane by plane
 #pragma unroll
       for (int p = 0; p < planes; ++p) {
 #pragma unroll
         for (int i = 0; i < 16; ++i) {
           const int bits_i = i == 0 ? wb7 - 1 : wb7;
-          put(o, w[planes * i + p], ofs, bits_i);
+          put(o, remap_weight<C::weight_bits, wb7>(texel_weight<M>(l, 0u, i, p)), ofs, bits_i);
           ofs += bits_i;
-        }
-      }
-    } else {
-      // texel i lands in the static window [ofs + wb7*i - maxab_i, +wb7+maxab_i),
-      // shifted into place by a per-pattern pre-shift (maxab_i - ab_i)
-      using F = Family<C::fam>;
-      const uint32_t ps_packed = UB_LDG(&FAM_BC7_WEIGHT_PRESHIFT_PACKED[F::base + pat]);
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const int mn = (F::bc7_ab_min_packed >> (2 * i)) & 3, mx = (F::bc7_ab_max_packed >> (2 * i)) & 3;
-        if (mn == mx) {
-          put(o, w[i], ofs + wb7 * i - mx, wb7);
-        } else {
-          put(o, w[i] << ((ps_packed >> (2 * i)) & 3u), ofs + wb7 * i - mx, wb7 + mx);
         }
       }
     }

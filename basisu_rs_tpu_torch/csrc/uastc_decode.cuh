@@ -178,6 +178,18 @@ UB_FN void put(uint32_t (&o)[4], uint32_t value, int offset, int count) {
   if (b + count > 32 && w + 1 < 4) o[w + 1] |= value >> (32 - b);
 }
 
+// extract and put of a field of up to 64 bits at a static offset.
+UB_FN uint64_t extract64(const uint32_t (&l)[4], int offset, int count) {
+  uint64_t v = extract(l, offset, imin(32, count));
+  if (count > 32) v |= static_cast<uint64_t>(extract(l, offset + 32, count - 32)) << 32;
+  return v;
+}
+
+UB_FN void put64(uint32_t (&o)[4], uint64_t value, int offset, int count) {
+  put(o, static_cast<uint32_t>(value), offset, imin(32, count));
+  if (count > 32) put(o, static_cast<uint32_t>(value >> 32), offset + 32, count - 32);
+}
+
 // ---- UASTC field decode (ops/uastc_decode.py) -----------------------------
 
 // Component selector: static 3 for LA dual plane, else the 2-bit field of
@@ -348,6 +360,34 @@ UB_FN void decode_weights(const uint32_t (&l)[4], int32_t pat,
 template <class T>
 UB_FN T insert_zero(T s, uint32_t p) {
   return s + (s & (~T(0) << p));
+}
+
+// The inverse of insert_zero where bit p of S is 0: the bit dropped and the
+// bits above it moved down one, (S & mask(p)) | ((S >> 1) & ~mask(p)).
+template <class T>
+UB_FN T remove_zero(T s, uint32_t p) {
+  return s - ((s >> 1) & (~T(0) << p));
+}
+
+// One bit a texel (bit 2i: texel i) moved into all 3 bits of field i of a
+// stream of 3-bit weights (bits [3i, 3i + 3)): lane i moves up by i, in
+// steps of 8, 4, 2 and 1.  With 2-bit weights that bit times 3 is the
+// field.  K1 and K2 XOR the fields of a swapped subset with these masks.
+UB_FN constexpr uint64_t lane_step_mask(int sh) {
+  uint64_t m = 0;
+  for (int i = 0; i < 16; ++i)
+    if (i & sh) m |= 1ull << (2 * i + (i & ~(2 * sh - 1)));
+  return m;
+}
+
+UB_FN uint64_t spread_lanes3(uint32_t lanes) {
+  uint64_t x = lanes;
+  constexpr uint64_t m8 = lane_step_mask(8), m4 = lane_step_mask(4), m2 = lane_step_mask(2), m1 = lane_step_mask(1);
+  x = (x & ~m8) | ((x & m8) << 8);
+  x = (x & ~m4) | ((x & m4) << 4);
+  x = (x & ~m2) | ((x & m2) << 2);
+  x = (x & ~m1) | ((x & m1) << 1);
+  return x * 7u;
 }
 
 // Mode M's weight stream S in words s[0..2] (at most 80 bits; bits past

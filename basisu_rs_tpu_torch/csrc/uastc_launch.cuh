@@ -24,19 +24,45 @@
 //     19 launches of the 2^23-block all-mode cell take 0.382 ms against
 //     0.663 ms with each thread's four 16-byte stores.
 //
+// Chained launches (K1, whose Op declares kChained = true): the dispatch
+// launches one kernel per present mode, each a grid of ~1.6 waves whose last
+// wave drains with the SMs half empty.  launch_chained issues a launch with
+// programmatic dependent launch (Hopper): each CTA of a chained kernel first
+// executes griddepcontrol.launch_dependents, so the next launch of the
+// stream, if it is chained too, may start its CTAs on the SMs this grid's
+// last wave leaves idle; each thread then executes griddepcontrol.wait
+// before its stores, which returns once every earlier grid of the stream
+// has completed and its writes are visible.  So a chained launch stores
+// nothing before the launch ahead of it has completed, and completes after
+// it, and a plain launch or copy that follows the chain sees every row.  A
+// chained kernel reads its blocks and index before the wait: the caller
+// chains only a launch whose inputs no grid still running writes (the
+// dispatch chains each mode's launch to the one before it; the first launch
+// of a call is a plain one).  A plain launch of the same kernel waits for
+// the grids ahead in the usual way, and its griddepcontrol instructions do
+// nothing.
+//
 // Op<M> is one target's per-block transcode for UASTC mode M:
 //   static constexpr int kOutBytes;  // 8, 16 or 64
+//   static constexpr bool kChained;  // optional: true where launch_chained serves it
 //   static __device__ bool run(const uint32_t (&l)[4], uint32_t (&o)[kOutBytes / 4]);
 // The mode is a template parameter, so every bit offset and loop folds into
 // straight-line code with no mode branches.
 #pragma once
 #include <cuda_runtime.h>
 
+#include <type_traits>
 #include <utility>
 
 #include "uastc_decode.cuh"
 
 namespace ub {
+
+// Op::kChained where Op declares it, else false.
+template <class Op, class = void>
+constexpr bool kChained = false;
+template <class Op>
+constexpr bool kChained<Op, std::void_t<decltype(Op::kChained)>> = Op::kChained;
 
 // Staged-row slot of chunk c (0..3) of a warp's row r (0..31), 16-byte units.
 __device__ __forceinline__ int staged_chunk(int r, int c) { return 4 * r + (c ^ ((r >> 1) & 3)); }
@@ -46,6 +72,7 @@ __global__ void __launch_bounds__(kThreads)
     uastc_kernel(const uint4* __restrict__ in, const long long* __restrict__ index, int n,
                  void* __restrict__ out, uint8_t* __restrict__ err) {
   static_assert(Op::kOutBytes == 8 || Op::kOutBytes == 16 || Op::kOutBytes == 64, "rows of 8, 16 or 64 bytes");
+  static_assert(!kChained<Op> || Op::kOutBytes != 64, "chained launches store rows of 8 or 16 bytes");
   const int t = blockIdx.x * kThreads + threadIdx.x;
   if constexpr (Op::kOutBytes == 64) {
     __shared__ uint4 stage[kThreads * 4];
@@ -71,12 +98,14 @@ __global__ void __launch_bounds__(kThreads)
       if (dst >= 0) static_cast<uint4*>(out)[dst * 4 + c] = ws[staged_chunk(r, c)];
     }
   } else {
+    if constexpr (kChained<Op>) asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
     if (t >= n) return;
     const long long row = index != nullptr ? __ldg(index + t) : t;
     const uint4 v = __ldg(in + row);
     const uint32_t l[4] = {v.x, v.y, v.z, v.w};
     uint32_t o[Op::kOutBytes / 4];
     const bool e = Op::run(l, o);
+    if constexpr (kChained<Op>) asm volatile("griddepcontrol.wait;" ::: "memory");
     if constexpr (Op::kOutBytes == 8) static_cast<uint2*>(out)[row] = make_uint2(o[0], o[1]);
     else static_cast<uint4*>(out)[row] = make_uint4(o[0], o[1], o[2], o[3]);
     err[row] = e ? 1 : 0;
@@ -109,6 +138,32 @@ int launch(int mode, const void* in, const void* index, int n, void* out, void* 
         static_cast<const uint4*>(in), static_cast<const long long*>(index), n, out, static_cast<uint8_t*>(err));
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// launch, chained to the launch ahead of it on `stream`: one
+// cudaLaunchKernelEx with programmatic stream serialization allowed (see
+// the top of this file).  Returns the launch's cudaError_t.
+template <template <int> class Op>
+int launch_chained(int mode, const void* in, const void* index, int n, void* out, void* err, void* stream) {
+  static_assert(kChained<Op<0>>, "launch_chained serves kernels that wait before their stores");
+  if (mode < 0 || mode >= 19 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t rc = cudaSuccess;
+  if (n > 0) {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((n + kThreads - 1) / kThreads);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    rc = cudaLaunchKernelEx(&cfg, kernels<Op>()[mode], static_cast<const uint4*>(in),
+                            static_cast<const long long*>(index), n, out, static_cast<uint8_t*>(err));
+  }
+  const cudaError_t last = cudaGetLastError();  // clears the error state a failed launch leaves
+  return static_cast<int>(rc != cudaSuccess ? rc : last);
 }
 
 // Warps of Op<mode>'s kernel resident on one SM at kThreads a CTA, as the

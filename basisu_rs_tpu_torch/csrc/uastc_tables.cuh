@@ -926,6 +926,16 @@ UB_TABLE uint32_t FAM_BC7_PAT_PACKED[61] = {
   0x5090a0a8, 0x500aa550, 0xa8a85454, 0x6a6a4040, 0xa0a5a5a0, 0x5450a0a8, 0xa9a58000, 0x96000000,
   0xa8a09050, 0xa8a85454, 0xa9a59450, 0x6a5a0200, 0x50505050
 };
+UB_TABLE uint32_t FAM_BC7_ANCHORS_PACKED[61] = {
+  0x000000f0, 0x000000f0, 0x000000f0, 0x000000f0, 0x000000f0, 0x000000f0, 0x000000f0, 0x000000f0,
+  0x000000f0, 0x000000f0, 0x000000f0, 0x000000f0, 0x000000f0, 0x000000f0, 0x000000f0, 0x000000f0,
+  0x00000020, 0x00000080, 0x00000020, 0x00000020, 0x00000080, 0x00000080, 0x000000f0, 0x00000020,
+  0x00000080, 0x00000020, 0x00000080, 0x000000f0, 0x000000f0, 0x000000f0, 0x00000f80, 0x00000f80,
+  0x00000f80, 0x00000f60, 0x00000f60, 0x00000f60, 0x00000f50, 0x00000f30, 0x00000a50, 0x00000a60,
+  0x00000fa0, 0x00000f60, 0x00000f60, 0x00000f30, 0x000008f0, 0x00000f80, 0x00000f50, 0x00000830,
+  0x000003f0, 0x000006f0, 0x00000f30, 0x00000830, 0x00000f80, 0x000003f0, 0x00000f80, 0x00000fd0,
+  0x00000f30, 0x00000f30, 0x00000f30, 0x000008f0, 0x000000f0
+};
 UB_TABLE uint32_t FAM_PERM_PACKED[61] = {
   0x00000010, 0x00000010, 0x00000001, 0x00000010, 0x00000001, 0x00000010, 0x00000001, 0x00000001,
   0x00000010, 0x00000001, 0x00000010, 0x00000001, 0x00000001, 0x00000001, 0x00000010, 0x00000001,

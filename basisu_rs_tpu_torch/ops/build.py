@@ -52,6 +52,9 @@ LAUNCH = {
     "etc1": "uastc_etc1_launch",
     "etc2": "uastc_etc2_launch",
 }
+# target -> C launch entry point that chains its launch to the one ahead of
+# it on the stream (programmatic dependent launch; csrc/uastc_launch.cuh)
+LAUNCH_CHAINED = {"bc7": "uastc_bc7_launch_chained"}
 # target -> C entry point that reports its kernels' resident warps per SM
 WARPS = {t: f"uastc_{t}_warps" for t in LAUNCH}
 # C launch entry point of the ETC1S kernels K6-K9 (csrc/etc1s.cu)
@@ -166,7 +169,7 @@ def load() -> ctypes.CDLL:
     if not so.exists():
         build()
     lib = ctypes.CDLL(str(so))
-    for name in LAUNCH.values():
+    for name in (*LAUNCH.values(), *LAUNCH_CHAINED.values()):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = [

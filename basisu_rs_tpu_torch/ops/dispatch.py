@@ -7,7 +7,10 @@ are: the mode of every block is MODE_LUT[b0 & 0x7F], a stable argsort
 groups the block indices by mode, and a bincount sizes the groups; reading
 the 20 counts is the one host sync.  Each present mode then gets one launch
 that reads and writes its rows in place through its slice of the sorted
-indices, so there is no gather or scatter pass.  Blocks of the invalid mode 19 come out zero with err set.
+indices, so there is no gather or scatter pass; for the targets in
+`kernels.CHAINED` (K1) each launch after the first is chained to the one
+before it, which writes other rows and none that it reads.  Blocks of the
+invalid mode 19 come out zero with err set.
 Groups are not padded: the power-of-two buckets of the JAX package only
 bound its recompiles.
 """
@@ -17,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..tables import INVALID_MODE, device_tables
-from .kernels import OUT_BYTES, TARGETS, mode_kernel
+from .kernels import CHAINED, OUT_BYTES, TARGETS, mode_kernel
 
 
 def check_target(target: str) -> None:
@@ -46,7 +49,7 @@ def dispatch(blocks: torch.Tensor, target: str, order: torch.Tensor, counts) -> 
     n = blocks.shape[0]
     out = torch.empty(n, OUT_BYTES[target], dtype=torch.uint8, device=blocks.device)
     err = torch.empty(n, dtype=torch.bool, device=blocks.device)
-    start = 0
+    start, chain = 0, False
     for mode, count in enumerate(counts):
         if count:
             idx = order[start : start + count]
@@ -55,7 +58,8 @@ def dispatch(blocks: torch.Tensor, target: str, order: torch.Tensor, counts) -> 
                 err[idx] = True
             else:
                 # idx is a slice of the argsort of the N rows: in range by construction
-                mode_kernel(target, mode)(blocks, idx, out, err, check_index=False)
+                mode_kernel(target, mode)(blocks, idx, out, err, check_index=False, chain=chain)
+                chain = target in CHAINED
         start += count
     return (out.view(torch.uint32) if target == "rgba" else out), err
 

@@ -15,6 +15,12 @@ the dispatch does.
 A tensor on the CPU goes to the plain version (`ops/{bc7,astc,rgba,etc}.py`);
 a CUDA tensor goes to the kernel, or the call raises.  Each wrapper counts its
 kernel launches (`launches`) and its plain-version calls (`plain_calls`).
+K1's launches can be chained (`chain=True`, targets in `CHAINED`): the
+launch may start while the one ahead of it on the stream drains, and
+stores nothing before that one has completed (`csrc/uastc_launch.cuh`).  A
+chained launch reads its blocks and index before that wait, so only a
+launch whose inputs no kernel still running writes may be chained; the
+dispatch chains each mode's launch to the one before it.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ from . import astc, bc7, build, etc, rgba
 N_MODES = 19
 TARGETS = ("bc7", "astc", "rgba", "etc1", "etc2")
 OUT_BYTES = {"bc7": 16, "astc": 16, "rgba": 64, "etc1": 8, "etc2": 16}
+# the targets whose launches can be chained
+CHAINED = frozenset(build.LAUNCH_CHAINED)
 # the plain PyTorch version of each target's launch
 PLAIN = {
     "bc7": bc7.transcode_rows,
@@ -64,13 +72,17 @@ class ModeKernel:
         self.launches = 0
         self.plain_calls = 0
 
-    def __call__(self, blocks, index=None, out=None, err=None, check_index=True):
+    def __call__(self, blocks, index=None, out=None, err=None, check_index=True, chain=False):
         """Transcode blocks[index] (every row when index is None) into
         out[index] / err[index]; allocates out/err (torch.empty) when not
         given.  Rows outside `index` are left as they were.  Every index
         value must lie in [0, N): checked here unless check_index is False,
         since the kernel reads and writes through the index unchecked.
+        chain=True chains a CUDA launch to the one ahead of it on the stream
+        (targets in CHAINED; see the module docstring for when that is safe).
         Returns (out uint8 [N, out_bytes], err bool [N])."""
+        if chain and self.target not in CHAINED:
+            raise ValueError(f"{self.target} launches cannot be chained; only {', '.join(sorted(CHAINED))} can")
         dev = blocks.device
         if blocks.dtype != torch.uint8 or blocks.dim() != 2 or blocks.shape[1] != 16:
             raise ValueError(f"blocks must be uint8 [N, 16], got {blocks.dtype} {tuple(blocks.shape)}")
@@ -101,16 +113,16 @@ class ModeKernel:
             self.plain_calls += 1
             PLAIN[self.target](self.mode, blocks, index, out, err)
         elif dev.type == "cuda":
-            self._launch(blocks, index, n, out, err)
+            self._launch(blocks, index, n, out, err, chain)
         else:
             raise ValueError(f"no {self.target} kernel for device {dev}")
         return out, err
 
-    def _launch(self, blocks, index, n, out, err) -> None:
+    def _launch(self, blocks, index, n, out, err, chain) -> None:
         if n >= 2**31:
             raise ValueError(f"{n} blocks exceed one launch (2^31 - 1)")
         check_alignment(blocks, out)
-        launch = getattr(build.load(), build.LAUNCH[self.target])
+        launch = getattr(build.load(), (build.LAUNCH_CHAINED if chain else build.LAUNCH)[self.target])
         with torch.cuda.device(blocks.device):
             stream = torch.cuda.current_stream(blocks.device).cuda_stream
             rc = launch(
@@ -123,7 +135,8 @@ class ModeKernel:
                 stream,
             )
         if rc != 0:
-            raise RuntimeError(f"{self.target} kernel of mode {self.mode}: launch failed, cudaError_t {rc}")
+            raise RuntimeError(f"{self.target} kernel of mode {self.mode}: {'chained ' if chain else ''}launch failed, "
+                               f"cudaError_t {rc}")
         self.launches += 1
 
 

@@ -43,6 +43,7 @@ _FAM_KINDS = (
     "ANCHORS_BEFORE_PACKED",
     "BC7_INDEX",
     "BC7_PAT_PACKED",
+    "BC7_ANCHORS_PACKED",
     "PERM_PACKED",
     "BC7_WEIGHT_PRESHIFT_PACKED",
     "PAT_PACKED",
@@ -58,6 +59,7 @@ def _fam_arrays(name: str) -> dict:
         "ANCHORS_BEFORE_PACKED": fam_anchors_before_packed(name),
         "BC7_INDEX": fam.bc7_index,
         "BC7_PAT_PACKED": fam.bc7_pat_packed,
+        "BC7_ANCHORS_PACKED": fam.bc7_anchors_packed,  # BC7 anchor texel of subset j: nibble j
         "PERM_PACKED": fam.perm_packed,
         "BC7_WEIGHT_PRESHIFT_PACKED": fam_bc7_weight_preshift_packed(name),
         "PAT_PACKED": fam.pat_packed,  # texel -> UASTC subset, 2 bits a texel

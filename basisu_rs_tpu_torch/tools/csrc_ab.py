@@ -9,8 +9,13 @@ into its own library, then on the main path's cell (the golden blocks tiled
 to 2^23, partitioned by mode) runs each variant's 19 launches, checks the
 output against the tiled golden outputs, bit-exact, and times each mode's
 launch and the 19 together (device time, median of 10, twice: the
-variants in order, then in reverse).  Each line gives a variant's sums and,
-per mode, its time, registers, spill-store bytes and SASS instructions.
+variants in order, then in reverse).  Where a variant's library exports
+`uastc_<target>_launch_chained`, the 19 launches go as the dispatch sends
+them: the first plain, each later one chained to the one before it; the
+check reads the output after the chain with no synchronize of its own.
+Each mode's own time is one plain (unchained) launch.  Each line gives a
+variant's sums and, per mode, its time, registers, spill-store bytes and
+SASS instructions.
 `--dump 9,13` writes the SASS of those modes' kernels to OUT (default
 `basisu_rs_tpu_torch/build/csrc_ab/`) for reading, and the same SASS
 annotated with the inlined source lines (a second build with -lineinfo,
@@ -77,6 +82,12 @@ def split_functions(lines) -> dict:
     return out
 
 
+def chained_launch(lib, target: str):
+    """The library's chained launch entry of `target`, or None."""
+    name = build.LAUNCH_CHAINED.get(target)
+    return getattr(lib, name) if name is not None and hasattr(lib, name) else None
+
+
 def build_variant(src: Path, targets, out: Path, dump_modes):
     """(library, ptxas report, SASS counts) of src's targets, built into out."""
     nvcc = build.nvcc_path()
@@ -106,10 +117,12 @@ def build_variant(src: Path, targets, out: Path, dump_modes):
             (out / f"sass_{src.name}_{t}_{m}.txt").write_text("".join(lines))
     lib = ctypes.CDLL(str(so))
     for t in targets:
-        fn = getattr(lib, build.LAUNCH[t])
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p]
+        for fn in (getattr(lib, build.LAUNCH[t]), chained_launch(lib, t)):
+            if fn is None:
+                continue
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                           ctypes.c_void_p, ctypes.c_void_p]
     return lib, build.parse_ptxas(log), counts
 
 
@@ -150,28 +163,33 @@ def main(argv=None) -> int:
         runs: dict = {}
         for names in (list(variants), list(reversed(variants))):
             for name in names:
-                fn = getattr(variants[name][0], build.LAUNCH[t])
+                lib = variants[name][0]
+                plain = getattr(lib, build.LAUNCH[t])
+                chained = chained_launch(lib, t) or plain
 
-                def go(m, fn=fn, name=name):
-                    rc = fn(m, full.data_ptr(), groups[m].data_ptr(), groups[m].shape[0], out.data_ptr(),
-                            err.data_ptr(), stream)
+                def go(m, chain=False, name=name, plain=plain, chained=chained):
+                    rc = (chained if chain else plain)(m, full.data_ptr(), groups[m].data_ptr(), groups[m].shape[0],
+                                                       out.data_ptr(), err.data_ptr(), stream)
                     if rc:
                         raise RuntimeError(f"{name} {t} mode {m}: launch failed, cudaError_t {rc}")
 
+                def all19():
+                    for m in range(19):
+                        go(m, chain=m > 0)
+
                 out.zero_()
-                for m in range(19):
-                    go(m)
-                torch.cuda.synchronize()
+                all19()
                 if not torch.equal(out, expected) or bool(err.any()):
                     raise RuntimeError(f"{name} {t}: output differs from the tiled golden outputs")
-                runs.setdefault(name, []).append((med(lambda: [go(m) for m in range(19)]),
-                                                  [med(lambda m=m: go(m)) for m in range(19)]))
+                runs.setdefault(name, []).append((med(all19), [med(lambda m=m: go(m)) for m in range(19)]))
         for name, r in runs.items():
             _, ptxas, sass = variants[name]
             per_mode = np.mean([ms for _, ms in r], axis=0)
-            print(f"{t} {name}: 19 launches {' / '.join(f'{s:.4f}' for s, _ in r)} ms; mode:ms/registers/spill "
-                  f"bytes/SASS " + " ".join(f"{m}:{per_mode[m]:.4f}/{ptxas[(t, m)]['registers']}/"
-                                            f"{ptxas[(t, m)]['spill_stores']}/{sass[(t, m)]}" for m in range(19)))
+            kind = "chained" if chained_launch(variants[name][0], t) else "plain"
+            print(f"{t} {name}: 19 launches ({kind}) {' / '.join(f'{s:.4f}' for s, _ in r)} ms, unchained per-mode "
+                  f"sum {per_mode.sum():.4f} ms; mode:ms (one plain launch)/registers/spill bytes/SASS "
+                  + " ".join(f"{m}:{per_mode[m]:.4f}/{ptxas[(t, m)]['registers']}/{ptxas[(t, m)]['spill_stores']}/"
+                             f"{sass[(t, m)]}" for m in range(19)))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
     return 0

@@ -53,7 +53,27 @@ PARTS = {
         ("etc_texels", None, None, "decode"),
         _LAUNCH,
     ],
-    "bc7": [("uastc_to_bc7", None, None, "decode+encode"), _LAUNCH],
+    # K1: the weight read (per texel, or the weight stream), the endpoint
+    # permutation and the subsets' inversion, the p-bit search, and the
+    # emit of the endpoints and of the weights.  The rules name both the
+    # per-weight form (decode_weights, extract_bit_dyn) and the word form
+    # (bc7_weight_word), so a dump of either source splits alike.
+    "bc7": [
+        ("texel_weight", None, None, "weight decode"), ("decode_weights", None, None, "weight decode"),
+        ("weight_stream", None, None, "weight decode"),
+        ("extract_bit_dyn", None, None, "permute/invert"), ("spread_lanes3", None, None, "permute/invert"),
+        ("remove_zero", None, None, "weight emit"),
+        ("bc7_weight_word", "// drop the anchors'", None, "weight emit"),
+        ("bc7_weight_word", "// BC7 subsets j >= 1", "// drop the anchors'", "permute/invert"),
+        ("bc7_weight_word", None, None, "weight decode"),
+        ("uastc_to_bc7", "// weights (bc7.rs", None, "weight emit"),
+        ("uastc_to_bc7", "// endpoints (bc7.rs", "// weights (bc7.rs", "endpoint emit"),
+        ("uastc_to_bc7", "// p-bits or plain", "// endpoints (bc7.rs", "p-bits"),
+        ("uastc_to_bc7", "// BC7 subset j takes", "// p-bits or plain", "permute/invert"),
+        ("uastc_to_bc7", "decode_weights<M>(l, pat, w);", "int32_t pr[nsub]", "weight decode"),
+        ("uastc_to_bc7", None, None, "decode"),
+        _LAUNCH,
+    ],
     "rgba": [("uastc_to_rgba", None, None, "decode"), _LAUNCH],
 }
 PARTS["etc2"] = [("eac_words", None, None, "alpha"), ("etc2_alpha_texels", None, None, "alpha")] + PARTS["etc1"]

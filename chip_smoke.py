@@ -25,9 +25,14 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      golden all-mode mix through `transcode_uastc_blocks`, checked against
      the tiled golden outputs, with launch counters that must show one
      launch per mode and no plain-version call; then CUDA-event timings of
-     the whole call, of the 19 launches alone (as called, and device time
-     with the stream preloaded), of each mode's kernel on its group (device
-     time), and of the plain version at the same size (as called);
+     the whole call, of the 19 launches alone (as the dispatch sends them,
+     K1's chained after the first; as called, and device time with the
+     stream preloaded), of each mode's kernel on its group (one plain
+     launch, device time; their sum beside the 19 launches' span), and of
+     the plain version at the same size (as called).  The call's output and
+     err, and the output of the 19 launches alone, are checked with no
+     synchronize before the check, so a chained launch that completed ahead
+     of the one before it would show as a mismatch;
   6. as phase 3, for the ASTC and RGBA kernels;
   7. the golden corpus to ASTC and RGBA through the API on the card, and the
      invalid-mode and invalid-pattern blocks through the block functions,
@@ -1015,7 +1020,9 @@ def main() -> int:
 
         kernels.reset_counts()
         out, err = transcode_uastc_blocks(full, t)
-        torch.cuda.synchronize()
+        # no synchronize: the comparisons below follow the (for K1, chained)
+        # launches on the stream, so a launch that completed ahead of the one
+        # before it would show as a mismatch
         launches = kernels.launch_counts()[t]
         plain_calls = sum(sum(c) for c in kernels.plain_call_counts().values())
         require(tuple(as_bytes(out).shape) == (N_FULL, out_bytes[t]), f"{t} full-size output shape")
@@ -1032,9 +1039,15 @@ def main() -> int:
         k_err = torch.empty(N_FULL, dtype=torch.bool, device=dev)
 
         def launches_alone():
-            for m, idx in groups.items():
-                kernels.mode_kernel(t, m)(full, idx, k_out, k_err, check_index=False)
+            # as the dispatch launches them: K1's chained after the first
+            for k, (m, idx) in enumerate(groups.items()):
+                kernels.mode_kernel(t, m)(full, idx, k_out, k_err, check_index=False,
+                                          chain=k > 0 and t in kernels.CHAINED)
 
+        k_out.zero_()
+        launches_alone()
+        require(bool(torch.equal(k_out, expected)) and not bool(k_err.any()),
+                f"{t} launches alone differ from the tiled golden outputs")
         call_times = times_ms(lambda: transcode_uastc_blocks(full, t))
         call_ms = statistics.median(call_times)
         call_q1, _, call_q3 = statistics.quantiles(call_times, n=4)
@@ -1094,17 +1107,20 @@ def main() -> int:
         print(f"phase {phase} {t} time [{card}]: transcode_uastc_blocks {call_ms:.4f} ms = "
               f"{mtex(N_FULL, call_ms):.1f} Mtexels/s (median of {REPS}, CUDA events; quartiles "
               f"{call_q1:.4f}-{call_q3:.4f} ms, min {min(call_times):.4f}, max {max(call_times):.4f})")
-        print(f"phase {phase} {t} time [{card}]: 19 kernel launches alone, as called {launch_ms:.4f} ms = "
+        chained = "chained after the first, " if t in kernels.CHAINED else ""
+        print(f"phase {phase} {t} time [{card}]: 19 kernel launches alone ({chained}output bit-exact vs tiled golden "
+              f"with no synchronize before the check), as called {launch_ms:.4f} ms = "
               f"{mtex(N_FULL, launch_ms):.1f} Mtexels/s; device time {launch_dev_ms:.4f} ms = "
               f"{mtex(N_FULL, launch_dev_ms):.1f} Mtexels/s; HBM bound {bound_all:.4f} ms "
               f"({block_bytes[t]} B a block at 3.35 TB/s, {100 * bound_all / launch_dev_ms:.1f}% of device time); "
-              f"the index list adds {INDEX_BYTES} B a block, {index_ms:.4f} ms at 3.35 TB/s")
+              f"the index list adds {INDEX_BYTES} B a block, {index_ms:.4f} ms at 3.35 TB/s; the unchained per-mode "
+              f"launches below sum to {sum(mode_ms.values()):.4f} ms")
         print(f"phase {phase} {t} time [{card}]: partition and host share of the call "
               f"{call_ms - launch_ms:.4f} ms (call minus launches as called)")
         print(f"phase {phase} {t} time [{card}]: plain PyTorch version, same size {plain_ms:.4f} ms = "
               f"{mtex(N_FULL, plain_ms):.1f} Mtexels/s (as called, median of {PLAIN_REPS})")
         for m in groups:
-            print(f"phase {phase} {t} mode {m:2d} [{card}]: {counts[m]} blocks, kernel device time "
+            print(f"phase {phase} {t} mode {m:2d} [{card}]: {counts[m]} blocks, kernel device time (one plain launch) "
                   f"{mode_ms[m]:.4f} ms = {mtex(counts[m], mode_ms[m]):.1f} Mtexels/s; plain as called "
                   f"{plain_mode_ms[m]:.4f} ms = {mtex(counts[m], plain_mode_ms[m]):.1f} Mtexels/s")
         if perm_line:

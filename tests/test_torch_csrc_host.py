@@ -9,8 +9,10 @@ calls them over ctypes and holds every mode, ETC1S kind and (mode, stage)
 against the plain PyTorch versions (tolerance 0): shift, signedness and
 table-index faults show here without a card.  Exhaustive pins cover the
 small helpers: the per-texel weight read of every (mode, pattern, texel,
-plane), K2's weight stream and invert mask of every (mode, pattern), K4's
-RGB key tables, the EAC selector search, K5's alpha-key lookup and bit
+plane), K2's weight stream and invert mask of every (mode, pattern), K1's
+word-level weight field and invert flags of every (word mode, pattern)
+against the per-weight form it replaced, remove_zero at every bit
+position, K4's RGB key tables, the EAC selector search, K5's alpha-key lookup and bit
 scans, the ETC1 selector forms and selector word, the subblock average and
 the bias rule; K5's alpha range is held at its edges (one key, the extreme
 keys).  The package never loads this build; it skips only when g++ is
@@ -30,7 +32,8 @@ from basisu_rs_tpu.tables import np_tables
 from basisu_rs_tpu_torch.ops import bc7_stages, build, etc1s, fl_div255_probe, kernels
 from basisu_rs_tpu_torch.ops.bits import lanes_from_bytes
 from basisu_rs_tpu_torch.ops.uastc_decode import decode_weights, subsets_for_texels
-from basisu_rs_tpu_torch.tables import LA, MODES, device_tables
+from basisu_rs_tpu_torch.tables import (BC7_MODES, LA, MODES, bc7_mode_of, device_tables,
+                                        fam_bc7_inv_relpos_packed, family_name)
 import oracle_uastc as ou
 from torch_cases import bias_reference, eac_reference_selectors, etc1_selector_cases, etc1s_inputs
 
@@ -210,6 +213,104 @@ extern "C" int weight_stream_host(int mode, int pat, int inv_bits, const uint8_t
   return 0;
 }
 
+// K1's weight field of word-weights mode M under pattern pat over n blocks:
+// bc7_weight_word<M> (the field in two words a block, the invert flag of
+// BC7 subset j in bit j of inv), and the per-weight form it replaced, with
+// the field at offset 0: texel_weight -> remap_weight -> the invert flag of
+// each BC7 subset j >= 1 read by extract_bit_dyn through
+// FAM_BC7_INV_RELPOS_PACKED -> the per-texel XOR -> the pre-shifted puts of
+// FAM_BC7_WEIGHT_PRESHIFT_PACKED.
+template <int M>
+static void bc7_weights_run(int pat, const uint8_t* in, long long n, uint32_t* word, uint32_t* word_inv,
+                            uint32_t* ref, uint32_t* ref_inv) {
+  using C = ub::Mode<M>;
+  using B = ub::Bc7Mode<C::bc7>;
+  constexpr int wb7 = B::weight_bits, nsub7 = B::subset_count;
+  for (long long t = 0; t < n; ++t) {
+    uint32_t l[4];
+    memcpy(l, in + 16 * t, 16);
+    bool inv[3];
+    const uint64_t f = ub::bc7_weight_word<M>(l, pat, inv);
+    word[2 * t] = static_cast<uint32_t>(f);
+    word[2 * t + 1] = static_cast<uint32_t>(f >> 32);
+    word_inv[t] = (inv[0] ? 1u : 0u) | (inv[1] ? 2u : 0u) | (inv[2] ? 4u : 0u);
+
+    const uint32_t abp = ub::weight_anchors<M>(pat);
+    uint32_t w[16], o[4] = {0, 0, 0, 0}, rinv = 0;
+    for (int i = 0; i < 16; ++i) w[i] = ub::remap_weight<C::weight_bits, wb7>(ub::texel_weight<M>(l, abp, i, 0));
+    if constexpr (nsub7 == 1) {
+      for (int i = 0, ofs = 0; i < 16; ++i) {
+        const int bits_i = i == 0 ? wb7 - 1 : wb7;
+        ub::put(o, w[i], ofs, bits_i);
+        ofs += bits_i;
+      }
+    } else {
+      using F = ub::Family<C::fam>;
+      const uint32_t pat_packed = ub::FAM_BC7_PAT_PACKED[F::base + pat];
+      const uint32_t inv_packed = ub::FAM_BC7_INV_RELPOS_PACKED[C::inv_base + pat];
+      uint32_t inv_mask[3] = {0u, 0u, 0u};
+      for (int s = 1; s < nsub7; ++s) {
+        const uint32_t entry = (inv_packed >> (8 * (s - 1))) & 0xFFu;
+        const int rlo = s == 1 ? C::inv_lo1 : C::inv_lo2, rhi = s == 1 ? C::inv_hi1 : C::inv_hi2;
+        const uint32_t bit = ub::extract_bit_dyn(l, (entry & 63u) + C::ofs_weights, C::ofs_weights + rlo,
+                                                 C::ofs_weights + rhi + 1);
+        const bool sw = (bit & (entry >> 7)) != 0u;
+        inv_mask[s] = sw ? ub::mask(wb7) : 0u;
+        rinv |= sw ? 1u << s : 0u;
+      }
+      for (int i = 0; i < 16; ++i) {
+        const uint32_t s_i = (pat_packed >> (2 * i)) & 3u;
+        w[i] ^= s_i == 1u ? inv_mask[1] : s_i == 2u ? inv_mask[2] : 0u;
+      }
+      const uint32_t ps_packed = ub::FAM_BC7_WEIGHT_PRESHIFT_PACKED[F::base + pat];
+      for (int i = 0; i < 16; ++i) {
+        const int mn = (F::bc7_ab_min_packed >> (2 * i)) & 3, mx = (F::bc7_ab_max_packed >> (2 * i)) & 3;
+        if (mn == mx) ub::put(o, w[i], wb7 * i - mx, wb7);
+        else ub::put(o, w[i] << ((ps_packed >> (2 * i)) & 3u), wb7 * i - mx, wb7 + mx);
+      }
+    }
+    ref[2 * t] = o[0];
+    ref[2 * t + 1] = o[1];
+    ref_inv[t] = rinv;
+  }
+}
+typedef void (*Bc7WeightsFn)(int, const uint8_t*, long long, uint32_t*, uint32_t*, uint32_t*, uint32_t*);
+template <int M>
+static Bc7WeightsFn bc7_weights_fn() {
+  if constexpr (!ub::kWordWeights<M>) return nullptr;
+  else return bc7_weights_run<M>;
+}
+static const Bc7WeightsFn kBc7Weights[19] = {
+    bc7_weights_fn<0>(),  bc7_weights_fn<1>(),  bc7_weights_fn<2>(),  bc7_weights_fn<3>(),  bc7_weights_fn<4>(),
+    bc7_weights_fn<5>(),  bc7_weights_fn<6>(),  bc7_weights_fn<7>(),  bc7_weights_fn<8>(),  bc7_weights_fn<9>(),
+    bc7_weights_fn<10>(), bc7_weights_fn<11>(), bc7_weights_fn<12>(), bc7_weights_fn<13>(), bc7_weights_fn<14>(),
+    bc7_weights_fn<15>(), bc7_weights_fn<16>(), bc7_weights_fn<17>(), bc7_weights_fn<18>()};
+// returns -1 for a mode whose weights K1 puts texel by texel
+extern "C" int bc7_weights_host(int mode, int pat, const uint8_t* in, long long n, uint32_t* word,
+                                uint32_t* word_inv, uint32_t* ref, uint32_t* ref_inv) {
+  if (kBc7Weights[mode] == nullptr) return -1;
+  kBc7Weights[mode](pat, in, n, word, word_inv, ref, ref_inv);
+  return 0;
+}
+// remove_zero at bit p of n 64-bit values s (bit p 0) and insert_zero of the
+// result; insert_zero then remove_zero of n values x (top bit 0); the same
+// in 32 bits on the low words, for p < 32.
+extern "C" void zero_bits_host(int p, const uint64_t* s, const uint64_t* x, long long n, uint64_t* out) {
+  for (long long t = 0; t < n; ++t) {
+    const uint64_t r = ub::remove_zero(s[t], p);
+    out[6 * t] = r;
+    out[6 * t + 1] = ub::insert_zero(r, p);
+    out[6 * t + 2] = ub::remove_zero(ub::insert_zero(x[t], p), p);
+    if (p < 32) {
+      const uint32_t s32 = static_cast<uint32_t>(s[t]), x32 = static_cast<uint32_t>(x[t]) >> 1;
+      const uint32_t r32 = ub::remove_zero(s32, p);
+      out[6 * t + 3] = r32;
+      out[6 * t + 4] = ub::insert_zero(r32, p);
+      out[6 * t + 5] = ub::remove_zero(ub::insert_zero(x32, p), p);
+    }
+  }
+}
+
 // K4's RGB key table over n blocks of mode M: per texel its key, the
 // (packed quad RGB, luminance) the table gives for it, and the same from
 // texel_channels; returns -1 for a mode without a table.
@@ -351,6 +452,10 @@ def host_lib(tmp_path_factory):
     lib.weight_stream_host.argtypes = [i, i, i, p, ctypes.c_longlong, p, p]
     lib.rgb_keys_host.restype = ctypes.c_int
     lib.rgb_keys_host.argtypes = [i, p, ctypes.c_longlong, p, p, p]
+    lib.bc7_weights_host.restype = ctypes.c_int
+    lib.bc7_weights_host.argtypes = [i, i, p, ctypes.c_longlong, p, p, p, p]
+    lib.zero_bits_host.restype = None
+    lib.zero_bits_host.argtypes = [i, p, p, ctypes.c_longlong, p]
     return lib
 
 
@@ -458,6 +563,76 @@ def test_host_weight_stream_every_pattern(host_lib, mode):
             assert reversed_ == per_weight, f"mode {mode} pattern {pat} block {t}"
     assert host_lib.weight_stream_host(8, 0, 0, blocks.ctypes.data, len(blocks), out.ctypes.data,
                                        inv.ctypes.data) == -1
+
+
+# K1's modes whose BC7 weight field is one word (one plane, UASTC and BC7
+# weight widths equal)
+WORD_MODES = [m for m in range(19) if m != 8 and MODES[m].plane_count == 1
+              and MODES[m].weight_bits == BC7_MODES[bc7_mode_of(MODES[m])].weight_bits]
+
+
+def test_word_modes():
+    assert WORD_MODES == [0, 1, 2, 3, 4, 7, 9, 10, 15, 16]
+
+
+@pytest.mark.parametrize("mode", range(19))
+def test_host_bc7_weight_word_every_pattern(host_lib, mode):
+    # K1's word-level weight field under every pattern of each word mode,
+    # on seeded random blocks, against the per-weight form it replaced: the
+    # field and every subset's invert flag equal, and every combination of
+    # invert flags that the pattern allows is met (a BC7 anchor that is also
+    # a UASTC anchor never inverts)
+    cfg = MODES[mode]
+    rng = np.random.default_rng(4000 + mode)
+    n = 256
+    word, ref = np.zeros((n, 2), np.uint32), np.zeros((n, 2), np.uint32)
+    word_inv, ref_inv = np.zeros(n, np.uint32), np.zeros(n, np.uint32)
+    blocks = rng.integers(0, 256, (n, 16), dtype=np.uint8)
+    if mode not in WORD_MODES:
+        assert host_lib.bc7_weights_host(mode, 0, blocks.ctypes.data, n, word.ctypes.data, word_inv.ctypes.data,
+                                         ref.ctypes.data, ref_inv.ctypes.data) == -1
+        return
+    nsub7 = BC7_MODES[bc7_mode_of(cfg)].subset_count
+    fam = family_name(cfg)
+    for pat in range(cfg.pattern_count):
+        blocks = rng.integers(0, 256, (n, 16), dtype=np.uint8)
+        assert host_lib.bc7_weights_host(mode, pat, blocks.ctypes.data, n, word.ctypes.data, word_inv.ctypes.data,
+                                         ref.ctypes.data, ref_inv.ctypes.data) == 0
+        np.testing.assert_array_equal(word, ref, err_msg=f"mode {mode} pattern {pat}")
+        np.testing.assert_array_equal(word_inv, ref_inv, err_msg=f"mode {mode} pattern {pat}")
+        field = word[:, 0].astype(np.uint64) | (word[:, 1].astype(np.uint64) << np.uint64(32))
+        assert not (field >> np.uint64(16 * cfg.weight_bits - nsub7)).any(), f"mode {mode}: bits past the field"
+        allowed = {0}
+        for j in range(1, nsub7):
+            entry = int(fam_bc7_inv_relpos_packed(fam, cfg.weight_bits)[pat]) >> (8 * (j - 1))
+            if entry & 0x80:  # the anchor's MSB is a stored bit
+                allowed |= {a | (1 << j) for a in allowed}
+        assert set(word_inv.tolist()) == allowed, f"mode {mode} pattern {pat}: invert flags {set(word_inv.tolist())}"
+
+
+def test_host_remove_zero_inverts_insert_zero(host_lib):
+    # remove_zero at every bit position of 64- and 32-bit words: equal to
+    # (s & mask(p)) | ((s >> 1) & ~mask(p)) where bit p of s is 0, undone by
+    # insert_zero, and undoing insert_zero where the top bit is 0
+    rng = np.random.default_rng(5000)
+    n = 512
+    for p in range(64):
+        s = rng.integers(0, 1 << 64, n, dtype=np.uint64, endpoint=False) & ~np.uint64(1 << p)
+        x = rng.integers(0, 1 << 63, n, dtype=np.uint64)
+        out = np.zeros((n, 6), np.uint64)
+        host_lib.zero_bits_host(p, s.ctypes.data, x.ctypes.data, n, out.ctypes.data)
+        for t in range(n):
+            low = (1 << p) - 1
+            assert int(out[t, 0]) == (int(s[t]) & low) | ((int(s[t]) >> 1) & ~low), f"p {p} s {int(s[t]):#x}"
+        np.testing.assert_array_equal(out[:, 1], s, err_msg=f"p {p}")
+        np.testing.assert_array_equal(out[:, 2], x, err_msg=f"p {p}")
+        if p < 32:
+            s32, x32 = s & np.uint64(0xFFFFFFFF), (x & np.uint64(0xFFFFFFFF)) >> np.uint64(1)
+            low = np.uint64((1 << p) - 1)
+            np.testing.assert_array_equal(out[:, 3], (s32 & low) | ((s32 >> np.uint64(1)) & ~low & np.uint64(0xFFFFFFFF)),
+                                          err_msg=f"32-bit p {p}")
+            np.testing.assert_array_equal(out[:, 4], s32, err_msg=f"32-bit p {p}")
+            np.testing.assert_array_equal(out[:, 5], x32, err_msg=f"32-bit p {p}")
 
 
 @pytest.mark.parametrize("mode", range(19))
@@ -739,6 +914,19 @@ def _source_line(name: str, text: str) -> int:
     ("etc1", [("uastc_etc.cuh", "return v == 0 ?"), ("uastc_etc.cuh", "c[sb][ch] = has_bias")], "encode"),
     ("etc1", [("uastc_rgba.cuh", "b.abp = weight_anchors<M>(pat);"), ("uastc_etc.cuh", "fill_rgb_keys<M>(b, t);")],
      "decode"),
+    ("bc7", [("uastc_decode.cuh", "uint32_t val = (w < 4 ? l[w] : 0u) >> b;"),
+             ("uastc_bc7.cuh", "decode_endpoints<M>(l, ep);")], "decode"),
+    ("bc7", [("uastc_decode.cuh", "v = insert_zero(v, wb - 1);"), ("uastc_bc7.cuh", "weight_stream<M>(l, pat, st);"),
+             ("uastc_bc7.cuh", "wfield = bc7_weight_word<M>(l, pat, inv);")], "weight decode"),
+    ("bc7", [("uastc_bc7.cuh", "inv[1] = ((s >> (wb * a1"), ("uastc_bc7.cuh", "wfield = bc7_weight_word<M>(l, pat, inv);")],
+     "permute/invert"),
+    ("bc7", [("uastc_bc7.cuh", "lo[s][c] = inv[s] ? b : a;")], "permute/invert"),
+    ("bc7", [("uastc_bc7.cuh", "unique_pbits<cc, B::color_bits>(lo[j], hi[j], pb_lo[j], pb_hi[j]);")], "p-bits"),
+    ("bc7", [("uastc_bc7.cuh", "put(o, static_cast<uint32_t>(lo[j][c]) | (static_cast<uint32_t>(hi[j][c]) << bits)")],
+     "endpoint emit"),
+    ("bc7", [("uastc_decode.cuh", "return s - ((s >> 1)"), ("uastc_bc7.cuh", "return remove_zero(s, wb - 1);")],
+     "weight emit"),
+    ("bc7", [("uastc_bc7.cuh", "put64(o, wfield, ofs, 16 * wb7 - nsub7);")], "weight emit"),
 ])
 def test_sass_split_parts(target, frames, part):
     # tools/sass_split.py on nvdisasm --print-line-info-inline text: a

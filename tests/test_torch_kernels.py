@@ -1,5 +1,6 @@
 """PyTorch port: the kernel wrappers of `ops/kernels.py` (argument checks,
-the in-place index contract, counters, the output alignment rule) and the
+the in-place index contract, counters, the output alignment rule, which
+launches the dispatch chains) and the
 native build helper of `ops/build.py`, on the CPU, where a wrapper runs its
 plain version."""
 
@@ -114,3 +115,39 @@ def test_host_library_raises_on_failed_build(tmp_path):
     with pytest.raises(RuntimeError, match="build of libbroken_unit_.*failed"):
         build.host_library(src)
     assert not list(build.BUILD.glob("libbroken_unit_*"))  # no partial library left
+
+
+@pytest.mark.parametrize("target", TARGETS)
+def test_chain_only_where_the_target_has_a_chained_launch(golden, target):
+    # chain=True names K1's chained launch; a target without one refuses it
+    # before anything runs, and on the CPU K1's chained call is the plain one
+    blocks, out, err = _args(golden, target)
+    kernels.reset_counts()
+    if target in kernels.CHAINED:
+        kernels.mode_kernel(target, 3)(blocks, None, out, err, chain=True)
+        np.testing.assert_array_equal(out.numpy(), plain(target, 3, blocks.numpy())[0])
+        assert kernels.plain_call_counts()[target][3] == 1
+    else:
+        with pytest.raises(ValueError, match="cannot be chained"):
+            kernels.mode_kernel(target, 3)(blocks, None, out, err, chain=True)
+        assert bool((out == 0xAB).all()) and kernels.plain_call_counts()[target][3] == 0
+    assert kernels.CHAINED == frozenset(build.LAUNCH_CHAINED) == {"bc7"}
+
+
+@pytest.mark.parametrize("target", TARGETS)
+def test_dispatch_chains_each_launch_after_the_first(golden, target, monkeypatch):
+    # the dispatch's launch of each present mode: the first plain, each
+    # later one chained for the targets in CHAINED, none for the others
+    from basisu_rs_tpu_torch.ops import dispatch
+
+    calls = []
+
+    def fake(self, blocks, index=None, out=None, err=None, check_index=True, chain=False):
+        calls.append((self.mode, chain))
+
+    monkeypatch.setattr(kernels.ModeKernel, "__call__", fake)
+    blocks = torch.from_numpy(np.ascontiguousarray(golden["bc7_in"]))
+    dispatch.transcode_blocks(blocks, target)
+    modes = sorted({m for m, _ in calls})
+    assert [m for m, _ in calls] == modes and len(modes) > 2
+    assert [c for _, c in calls] == [False] + [target in kernels.CHAINED] * (len(calls) - 1)

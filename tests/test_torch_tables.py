@@ -127,6 +127,7 @@ def test_flat_family_tables_match_reference(fam):
     )
     np.testing.assert_array_equal(arrays["FAM_BC7_INDEX"][rows], ref.bc7_index)
     np.testing.assert_array_equal(arrays["FAM_BC7_PAT_PACKED"][rows], ref.bc7_pat_packed)
+    np.testing.assert_array_equal(arrays["FAM_BC7_ANCHORS_PACKED"][rows], ref.bc7_anchors_packed)
     np.testing.assert_array_equal(arrays["FAM_PERM_PACKED"][rows], ref.perm_packed)
     np.testing.assert_array_equal(
         arrays["FAM_BC7_WEIGHT_PRESHIFT_PACKED"][rows], jt.fam_bc7_weight_preshift_packed(fam)
