@@ -9,7 +9,9 @@ Port of `basisu_rs_tpu/__main__.py` (the reference crate has no CLI; this is
 a convenience layer over the same API surface).  `--device {cuda,cpu}`
 takes the place of the JAX CLI's `--platform`: the default `cuda` runs on
 the card and fails without one; `cpu` runs the plain PyTorch versions.
-`--mesh` is not ported yet (ROADMAP Queue 1 item 11).
+`transcode --mesh N` shards the device work over the first N cards
+(`parallel.make_mesh`; a bad N exits with rc 2), or with `--device cpu`
+over N CPU "devices"; `uastc` ignores it, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -80,7 +82,17 @@ def cmd_transcode(args) -> int:
         return 2
 
     buf = Path(args.file).read_bytes()
-    result = readers[args.target](buf, device=args.device)
+    kwargs = {"device": args.device}
+    if args.mesh and args.target != "uastc":
+        from .parallel.mesh import make_mesh, mesh_devices
+
+        try:
+            # --device cpu asked for the CPU: N CPU "devices" even where cards exist
+            kwargs["mesh"] = mesh_devices(["cpu"] * args.mesh) if args.device == "cpu" else make_mesh(args.mesh)
+        except ValueError as e:
+            print(f"--mesh {args.mesh}: {e}", file=sys.stderr)
+            return 2
+    result = readers[args.target](buf, **kwargs)
     images = result[1] if args.target == "rgba" else result
     outdir = Path(args.output)
     outdir.mkdir(parents=True, exist_ok=True)
@@ -180,6 +192,16 @@ def main(argv=None) -> int:
         "(rgba only)",
     )
     pt.add_argument("-o", "--output", default=".")
+    pt.add_argument(
+        "--mesh",
+        type=int,
+        default=0,
+        metavar="N",
+        help="shard the device work over an N-device mesh "
+        "(0 = single device; uastc passthrough ignores it). Today more than "
+        "one card is slower than one: one host thread enqueues every card's "
+        "launches in turn",
+    )
     pt.set_defaults(fn=cmd_transcode)
 
     ps = sub.add_parser("selftest", help="golden-corpus parity check on this host")

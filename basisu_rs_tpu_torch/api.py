@@ -10,6 +10,7 @@ the plain versions run only when asked for with `device="cpu"`.
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
@@ -58,15 +59,27 @@ class Image:
         return Image(w=self.w, h=self.h, stride=self.stride * 4, data=data)
 
 
-def _as_blocks(blocks, device) -> torch.Tensor:
-    device = resolve_device(device)
-    if isinstance(blocks, torch.Tensor):
-        t = blocks
-    else:
-        t = torch.from_numpy(np.ascontiguousarray(blocks, np.uint8))
+def host_tensor(a: np.ndarray) -> torch.Tensor:
+    """A CPU tensor over the numpy array a, without a copy; a may be a
+    read-only view of the caller's bytes, which the port only reads."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+        return torch.from_numpy(a)
+
+
+def block_tensor(blocks) -> torch.Tensor:
+    """uint8 [N,16] UASTC blocks (numpy or torch) as a contiguous torch
+    tensor where they lie: numpy arrays become CPU tensors over the same
+    memory where they can."""
+    t = blocks if isinstance(blocks, torch.Tensor) else host_tensor(np.ascontiguousarray(blocks, np.uint8))
     if t.dtype != torch.uint8:
         raise ValueError(f"UASTC blocks must be uint8, got {t.dtype}")
-    return t.to(device).reshape(-1, 16).contiguous()
+    return t.reshape(-1, 16).contiguous()
+
+
+def _as_blocks(blocks, device) -> torch.Tensor:
+    device = resolve_device(device)
+    return block_tensor(blocks).to(device)
 
 
 def transcode_uastc_blocks(blocks, target: str, device="cuda"):

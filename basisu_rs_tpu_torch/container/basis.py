@@ -6,35 +6,37 @@ fields, CRC-16/GENIBUS header and data checksums, 23-byte slice
 descriptors, and `read_to_{rgba,astc,bc7,etc1,etc2,uastc}`.
 
 Device design.  The host parses and checks the file (header, both CRCs,
-slice table).  A UASTC file's payload of all slices is copied to the device
-once and goes through one `transcode_blocks` over the slices concatenated
-in slice order, so a file pays one partition and at most 19 launches, not
-that per slice; the first failing block in that order is the reference's
-abort point.  An ETC1S file's slices go through the host front-end (C++,
-`etc1s_frontend.py`) one by one, in the reference's order, into one host
-array of uint16 index streams; that array is copied to the device once and
-decoded by one kernel launch for the whole file (K6, K8 when the file has
-alpha slices, K9 for ETC1), since the codebooks are the file's.  RGBA
-images are reordered from block rows ([by, bx, y, x]) to raster rows on the
-device.  Images keep the JAX package's strides.  Every `read_to_*` runs on
-`device="cuda"` unless asked for another device.
-
-Not ported yet: `mesh=` (ROADMAP.md Queue 1 item 11).
+slice table).  Every reader but `read_to_uastc` runs its device work over
+a mesh (`parallel/mesh.py`): `mesh=` (a device list, `parallel.make_mesh`),
+or the one device `device` names when no mesh is given; when both are
+given, the mesh decides.  A UASTC file's payload of all slices, in slice
+order, splits contiguously over the mesh and goes from the host straight
+to each shard's device, once; each shard pays one partition and at most 19
+launches (`parallel.sharded_transcode`), not that per slice, and the first
+failing block in slice order is the reference's abort point.  An ETC1S
+file's slices go through the host front-end (C++, `etc1s_frontend.py`) one
+by one, in the reference's order, into one host array of uint16 index
+streams; those split over the mesh the same way and are decoded by one
+kernel launch a shard (K6, K8 when the file has alpha slices, K9 for
+ETC1; `parallel.sharded_etc1s_transcode`), since the codebooks are the
+file's.  Images are built on mesh[0]; RGBA images are reordered from block
+rows ([by, bx, y, x]) to raster rows there.  Images keep the JAX package's
+strides.  Every `read_to_*` runs on `device="cuda"` unless asked for
+another device or a mesh.
 """
 
 from __future__ import annotations
 
 import struct
-import warnings
 from dataclasses import dataclass
 from enum import IntEnum
 
 import numpy as np
 import torch
 
-from ..api import BasisError, Image, resolve_device
-from ..ops.dispatch import INVALID_MODE, block_modes, transcode_blocks
-from ..ops.etc1s import run_etc1s_etc1, run_etc1s_rgba
+from ..api import BasisError, Image, host_tensor
+from ..ops.dispatch import INVALID_MODE, block_modes
+from ..parallel.mesh import resolve_mesh, sharded_etc1s_transcode, sharded_transcode
 from ..tables import UASTC_BLOCK_SIZE
 from .crc import crc16
 from .etc1s_frontend import Etc1sDecoder
@@ -236,11 +238,12 @@ def _view(buf: bytes, span: tuple[int, int]) -> np.ndarray:
     return np.frombuffer(buf, np.uint8, count=size, offset=start)
 
 
-def uastc_payload(buf: bytes, descs: list[SliceDesc], device) -> tuple[torch.Tensor, list[int]]:
+def uastc_host_payload(buf: bytes, descs: list[SliceDesc]) -> tuple[torch.Tensor, list[int]]:
     """(blocks, counts): the UASTC blocks of the slices before the first one
     whose payload is not a whole number of blocks (all slices when every one
-    is), concatenated in slice order as uint8 [N,16] on `device`, copied
-    from the host once; counts holds each of those slices' block count."""
+    is), concatenated in slice order as a uint8 [N,16] CPU tensor (a view
+    of buf when those slices lie back to back in it); counts holds each of
+    those slices' block count."""
     spans = []
     for desc in descs:
         start, size = _slice_span(buf, desc)
@@ -252,11 +255,7 @@ def uastc_payload(buf: bytes, descs: list[SliceDesc], device) -> tuple[torch.Ten
         host = _view(buf, (spans[0][0], sum(n for _, n in spans)))
     else:
         host = np.concatenate([np.zeros(0, np.uint8)] + [_view(buf, span) for span in spans])
-    with warnings.catch_warnings():
-        # a view of the caller's bytes: only read, by the copy or the kernels
-        warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
-        t = torch.from_numpy(host)
-    return t.to(device).reshape(-1, UASTC_BLOCK_SIZE), [n // UASTC_BLOCK_SIZE for _, n in spans]
+    return host_tensor(host).reshape(-1, UASTC_BLOCK_SIZE), [n // UASTC_BLOCK_SIZE for _, n in spans]
 
 
 def _check_errs(err: torch.Tensor, blocks: torch.Tensor) -> None:
@@ -265,8 +264,9 @@ def _check_errs(err: torch.Tensor, blocks: torch.Tensor) -> None:
     The reference's transcode loop (uastc.rs:148-165) aborts read_to_* with
     the first failing block's own error: "invalid mode index" (uastc.rs:336)
     or "block pattern is not valid" (uastc.rs:364), the only two per-block
-    Err sites.  The kernels report a flag per block; the message is derived
-    from the first failing block's mode."""
+    Err sites.  The kernels report a flag per block in block order; the
+    message is derived from the first failing block's mode (blocks may lie
+    on another device than err)."""
     bad = torch.nonzero(err)
     if bad.numel():
         first = int(bad[0, 0])
@@ -275,12 +275,12 @@ def _check_errs(err: torch.Tensor, blocks: torch.Tensor) -> None:
         raise BasisError("block pattern is not valid")
 
 
-def _uastc_file(buf: bytes, descs: list[SliceDesc], target: str, device):
-    """(slices, out) of a UASTC file: out is transcode_blocks' result over
-    every slice in slice order, on `device`, and slices holds (desc, first
-    row, end row) of each slice's rows in out."""
-    blocks, counts = uastc_payload(buf, descs, device)
-    out, err = transcode_blocks(blocks, target)
+def _uastc_file(buf: bytes, descs: list[SliceDesc], target: str, mesh: tuple):
+    """(slices, out) of a UASTC file: out is sharded_transcode's result
+    over every slice in slice order, on mesh[0], and slices holds (desc,
+    first row, end row) of each slice's rows in out."""
+    blocks, counts = uastc_host_payload(buf, descs)
+    out, err = sharded_transcode(blocks, target, mesh)
     _check_errs(err, blocks)
     if len(counts) < len(descs):
         raise BasisError("data length is not divisible by UASTC block size (16)")
@@ -370,30 +370,35 @@ def etc1s_index_streams(buf, dec: Etc1sDecoder, descs: list[SliceDesc], pairs: b
     return host, slices
 
 
-def _etc1s_indices(buf, header: Header, descs: list[SliceDesc], pairs: bool, device):
-    """(decoder, index streams on `device` in one copy, slices) of an ETC1S
-    file (etc1s_index_streams)."""
+def _etc1s_indices(buf, header: Header, descs: list[SliceDesc], pairs: bool):
+    """(decoder, host index streams, slices) of an ETC1S file
+    (etc1s_index_streams)."""
     if header.has_alpha and header.total_slices % 2 != 0:
         raise BasisError("File has alpha, but slice count is odd")
     dec = make_etc1s_decoder(header, buf)
     host, slices = etc1s_index_streams(buf, dec, descs, pairs)
-    return dec, torch.from_numpy(host).to(device), slices
+    return dec, torch.from_numpy(host), slices
 
 
-def _etc1s_rgba(buf, header: Header, descs: list[SliceDesc], device):
-    """(slices, texels) of an ETC1S file: one K6 launch, or one K8 launch
-    when the file has alpha slices (reference: basis.rs:26-53)."""
-    dec, idx, slices = _etc1s_indices(buf, header, descs, header.has_alpha, device)
-    alpha_pass = (idx[2], idx[3]) if header.has_alpha else None
+def _etc1s_rgba(buf, header: Header, descs: list[SliceDesc], mesh: tuple):
+    """(slices, texels) of an ETC1S file: one K6 launch a shard, or one K8
+    launch a shard when the file has alpha slices (reference:
+    basis.rs:26-53)."""
+    dec, idx, slices = _etc1s_indices(buf, header, descs, header.has_alpha)
+    kind, alpha_pass = ("rgba_alpha", (idx[2], idx[3])) if header.has_alpha else ("rgba", ())
     # the front-end checked every index against its codebook
-    out = run_etc1s_rgba(dec.endpoints, dec.selectors, idx[0], idx[1], alpha_pass, device, check_index=False)
+    out = sharded_etc1s_transcode(kind, dec.endpoints, dec.selectors, idx[0], idx[1], mesh, extra_idx=alpha_pass,
+                                  check_index=False)
     return slices, out
 
 
-def _etc1s_etc1(buf, header: Header, descs: list[SliceDesc], device):
-    """(slices, blocks) of an ETC1S file: one K9 launch over every slice."""
-    dec, idx, slices = _etc1s_indices(buf, header, descs, False, device)
-    return slices, run_etc1s_etc1(dec.endpoints, dec.selectors, idx[0], idx[1], device, check_index=False)
+def _etc1s_etc1(buf, header: Header, descs: list[SliceDesc], mesh: tuple):
+    """(slices, blocks) of an ETC1S file: one K9 launch a shard over every
+    slice."""
+    dec, idx, slices = _etc1s_indices(buf, header, descs, False)
+    # the front-end checked every index against its codebook
+    return slices, sharded_etc1s_transcode("etc1", dec.endpoints, dec.selectors, idx[0], idx[1], mesh,
+                                           check_index=False)
 
 
 # ---------------------------------------------------------------------------
@@ -401,65 +406,67 @@ def _etc1s_etc1(buf, header: Header, descs: list[SliceDesc], device):
 # ---------------------------------------------------------------------------
 
 
-def _open(buf: bytes, device):
-    """(device, header, slice descriptors, texture format) of a checked file."""
-    device = resolve_device(device)
+def _open(buf: bytes, device, mesh=None):
+    """(mesh, header, slice descriptors, texture format) of a checked file;
+    the mesh is resolve_mesh(device, mesh)."""
+    mesh = resolve_mesh(device, mesh)
     header, descs = _validated(buf)
-    return device, header, descs, header.texture_format()
+    return mesh, header, descs, header.texture_format()
 
 
-def read_to_rgba(buf: bytes, device="cuda") -> tuple[Header, list[Image]]:
+def read_to_rgba(buf: bytes, device="cuda", mesh=None) -> tuple[Header, list[Image]]:
     """-> (Header, [Image]) of RGBA bytes, one image per slice, or per
     (RGB, alpha) slice pair of an ETC1S file with alpha (reference:
     basis.rs:8-90).  Rows of an image are 4 * num_blocks_x texels apart
-    (COMPAT.md item 2)."""
-    device, header, descs, fmt = _open(buf, device)
+    (COMPAT.md item 2).  mesh: a device list to shard the device work
+    over (module docstring); None runs on `device`."""
+    mesh, header, descs, fmt = _open(buf, device, mesh)
     if fmt == TexFormat.ETC1S:
-        slices, out = _etc1s_rgba(buf, header, descs, device)
+        slices, out = _etc1s_rgba(buf, header, descs, mesh)
     else:
-        slices, out = _uastc_file(buf, descs, "rgba", device)
+        slices, out = _uastc_file(buf, descs, "rgba", mesh)
     return header, rgba_images(out, slices)
 
 
-def _read_to_blocks(buf: bytes, target: str, device) -> list[Image]:
+def _read_to_blocks(buf: bytes, target: str, device, mesh) -> list[Image]:
     """Shared UASTC path of read_to_{astc,bc7,etc2} (basis.rs:92-260): one
     image of `target` blocks per slice.  An ETC1S file is
     refused (COMPAT.md item 3)."""
-    device, header, descs, fmt = _open(buf, device)
+    mesh, header, descs, fmt = _open(buf, device, mesh)
     if fmt != TexFormat.UASTC4x4:
         raise BasisError("unsupported texture format")
-    slices, out = _uastc_file(buf, descs, target, device)
+    slices, out = _uastc_file(buf, descs, target, mesh)
     return _block_images(out, slices)
 
 
-def read_to_astc(buf: bytes, device="cuda") -> list[Image]:
-    return _read_to_blocks(buf, "astc", device)
+def read_to_astc(buf: bytes, device="cuda", mesh=None) -> list[Image]:
+    return _read_to_blocks(buf, "astc", device, mesh)
 
 
-def read_to_bc7(buf: bytes, device="cuda") -> list[Image]:
-    return _read_to_blocks(buf, "bc7", device)
+def read_to_bc7(buf: bytes, device="cuda", mesh=None) -> list[Image]:
+    return _read_to_blocks(buf, "bc7", device, mesh)
 
 
-def read_to_etc1(buf: bytes, device="cuda") -> list[Image]:
+def read_to_etc1(buf: bytes, device="cuda", mesh=None) -> list[Image]:
     """8-byte ETC1 blocks, one image per slice, of a UASTC or an ETC1S file."""
-    device, header, descs, fmt = _open(buf, device)
+    mesh, header, descs, fmt = _open(buf, device, mesh)
     if fmt == TexFormat.ETC1S:
-        slices, out = _etc1s_etc1(buf, header, descs, device)
+        slices, out = _etc1s_etc1(buf, header, descs, mesh)
     else:
-        slices, out = _uastc_file(buf, descs, "etc1", device)
+        slices, out = _uastc_file(buf, descs, "etc1", mesh)
     return _block_images(out, slices)
 
 
-def read_to_etc2(buf: bytes, device="cuda") -> list[Image]:
+def read_to_etc2(buf: bytes, device="cuda", mesh=None) -> list[Image]:
     """16-byte ETC2 RGBA blocks (EAC alpha, then ETC1) of a UASTC file; an
     ETC1S file is refused, as in the reference."""
-    return _read_to_blocks(buf, "etc2", device)
+    return _read_to_blocks(buf, "etc2", device, mesh)
 
 
 def read_to_uastc(buf: bytes, device="cuda") -> list[Image]:
     """Raw UASTC block passthrough (reference: basis.rs:175-202), the
     payload of each slice copied to `device`."""
-    device, header, descs, fmt = _open(buf, device)
+    (device,), header, descs, fmt = _open(buf, device)
     if fmt != TexFormat.UASTC4x4:
         raise BasisError("unsupported texture format")
     return [

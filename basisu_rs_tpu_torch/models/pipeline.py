@@ -4,8 +4,9 @@ Port of `basisu_rs_tpu/models/pipeline.py`.  A thread pool reads each file
 and checks its header and data CRC (host work that releases the GIL in the
 C++ CRC) while the main thread calls `read_to_*` file by file, which parses
 the container again, checks the CRC again, runs the ETC1S front-end (C++)
-for ETC1S files and launches the kernels.  Files that fail are reported in
-`errors`, not raised; progress can be resumed from a `PipelineState`.
+for ETC1S files and launches the kernels, sharded over `mesh` when one is
+given.  Files that fail are reported in `errors`, not raised; progress can
+be resumed from a `PipelineState`.
 """
 
 from __future__ import annotations
@@ -14,9 +15,10 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from pathlib import Path
 
-from ..api import BasisError, resolve_device
+from ..api import BasisError
 from ..container import basis as basis_mod
 from ..ops.kernels import TARGETS
+from ..parallel.mesh import resolve_mesh
 from ..utils.profiling import Profiler
 
 
@@ -44,14 +46,16 @@ class BasisCorpusPipeline:
     """Transcode a corpus of .basis files, UASTC and ETC1S, into `target`
     (one of the transcode targets, as the JAX package's constructor
     requires), with the file reads and CRC checks on `workers` threads.
-    Runs on `device="cuda"` unless constructed with another device."""
+    Runs on `device="cuda"` unless constructed with another device, or
+    shards each file's device work over `mesh` (a device list,
+    `parallel.make_mesh`), which then decides over `device`."""
 
-    def __init__(self, target: str, workers: int = 4, device="cuda"):
+    def __init__(self, target: str, workers: int = 4, device="cuda", mesh=None):
         if target not in TARGETS:
             raise BasisError(f"unknown target {target!r}")
         self.target = target
         self.workers = workers
-        self.device = resolve_device(device)
+        self.mesh = resolve_mesh(device, mesh)
         self.profiler = Profiler()
 
     # -- host-side stage (runs on worker threads) ---------------------------
@@ -91,7 +95,7 @@ class BasisCorpusPipeline:
                     # read_to_* spans the host container parse, (for ETC1S)
                     # the entropy front-end, and the launches
                     with self.profiler.stage("file/transcode"):
-                        result = reader(buf, device=self.device)
+                        result = reader(buf, mesh=self.mesh)
                     images = result[1] if self.target == "rgba" else result
                     texels = sum(int(i.w) * int(i.h) for i in images)
                     state.mark(path)

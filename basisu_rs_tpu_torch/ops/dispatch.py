@@ -34,28 +34,42 @@ def block_modes(blocks: torch.Tensor) -> torch.Tensor:
     return lut[(blocks[:, 0] & 0x7F).to(torch.int64)]
 
 
-def partition(blocks: torch.Tensor):
-    """(order, counts) of uint8 [N,16] blocks: the block indices sorted by
-    mode (stable) and the 20 per-mode counts, read back to the host (the one
-    host sync of a transcode)."""
+def mode_groups(blocks: torch.Tensor):
+    """(order, counts) of uint8 [N,16] blocks, enqueued where the blocks
+    lie without a host sync: the block indices sorted by mode (stable) and
+    the int64 [20] per-mode counts."""
     modes = block_modes(blocks)
     order = torch.argsort(modes, stable=True)
-    return order, torch.bincount(modes, minlength=INVALID_MODE + 1).tolist()
+    return order, torch.bincount(modes, minlength=INVALID_MODE + 1)
 
 
-def dispatch(blocks: torch.Tensor, target: str, order: torch.Tensor, counts) -> tuple:
+def partition(blocks: torch.Tensor):
+    """mode_groups() with the 20 counts read back to the host (the one host
+    sync of a transcode)."""
+    order, counts = mode_groups(blocks)
+    return order, counts.tolist()
+
+
+def dispatch(blocks: torch.Tensor, target: str, order: torch.Tensor, counts, out=None, err=None) -> tuple:
     """One launch per present mode over partition()'s groups, enqueued
-    without a sync; returns (out, err) as transcode_blocks does."""
+    without a sync; returns (out, err) as transcode_blocks does.  out
+    (uint8 [N, OUT_BYTES[target]]) and err (bool [N]) are written in place
+    when given, as the kernel wrappers check them, else allocated."""
     n = blocks.shape[0]
-    out = torch.empty(n, OUT_BYTES[target], dtype=torch.uint8, device=blocks.device)
-    err = torch.empty(n, dtype=torch.bool, device=blocks.device)
+    if out is None:
+        out = torch.empty(n, OUT_BYTES[target], dtype=torch.uint8, device=blocks.device)
+    if err is None:
+        err = torch.empty(n, dtype=torch.bool, device=blocks.device)
     start, chain = 0, False
     for mode, count in enumerate(counts):
         if count:
             idx = order[start : start + count]
             if mode == INVALID_MODE:
-                out[idx] = 0
-                err[idx] = True
+                # index_fill_ takes the value as a scalar: an assignment
+                # through the index would copy it from pageable host memory,
+                # which waits for the stream to drain
+                out.index_fill_(0, idx, 0)
+                err.index_fill_(0, idx, True)
             else:
                 # idx is a slice of the argsort of the N rows: in range by construction
                 mode_kernel(target, mode)(blocks, idx, out, err, check_index=False, chain=chain)

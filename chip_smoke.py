@@ -105,8 +105,28 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      tiled golden outputs, timed beside its HBM bound and its issue bound
      (2^23 / 32 warps x phase 2's SASS count over 132 SMs x 4 issue slots
      at the maximum SM clock), so the launch ramp of the main path's
-     ~441,500-block launches is apart from the steady rate.
-Phases 17-23 print their seconds.
+     ~441,500-block launches is apart from the steady rate;
+ 24. the sharded path (`basisu_rs_tpu_torch.parallel`): (a) `make_mesh(1)`
+     through `sharded_transcode` on phase 5's 2^23 blocks for the five
+     targets, bit-exact against the single-device `transcode_blocks`, 19
+     launches and no plain call a target, the whole call timed beside the
+     single-device call (single, mesh, mesh, single) and the launches'
+     device time; (b) four shards on the one card (`[cuda:0] * 4`) over
+     2^23 + 3 blocks with an invalid-mode block in the third shard and an
+     invalid-pattern block in the fourth, out and err equal to the
+     single-device path, and files holding those blocks raising the first
+     failing block's message through `read_to_bc7(buf, mesh=...)`; (c)
+     `sharded_etc1s_transcode` for the four kinds on phase 15's inputs, on
+     both meshes, equal to the single-device entries; (d)
+     `read_to_{bc7,rgba,etc1}` of phase 9's file and `read_to_{rgba,etc1}`
+     of phase 16's files with `mesh=`, images bit-exact against the reads
+     without one; (e) the CLI's `transcode --mesh 1` writing the bytes of
+     the unsharded run, and `--mesh N` past the card count exiting with rc
+     2 and the mesh's message; (f) with two or more cards, (a) and (c) on
+     `make_mesh(2)` and on every card as well.
+Phases 17-24 print their seconds.  `python3 chip_smoke.py --phase 24`
+runs phase 1, the build and phase 24 alone, on inputs built as the full
+run builds them.
 The last two lines before the final one are a JSON line of per-kernel
 results and the card's name and power limit; the final line is the
 `{"ok": true, "device": ...}` result.  Imports torch, numpy and
@@ -215,6 +235,112 @@ def etc1s_codebooks(rng, e: int, s: int):
     return endpoints, rng.integers(0, 256, (s, 4)).astype(np.uint8)
 
 
+def tiled_blocks(golden_in: np.ndarray) -> np.ndarray:
+    """Phase 5's input: the golden all-mode mix tiled to N_FULL blocks."""
+    return np.tile(golden_in, (-(-N_FULL // len(golden_in)), 1))[:N_FULL]
+
+
+def invalid_blocks() -> np.ndarray:
+    """uint8 [2, 16]: an invalid-mode block (byte 0 = 69, MODE_LUT value 19)
+    and a mode-2 block whose pattern field is 31 (mode 2 has 30 patterns)."""
+    from basisu_rs_tpu_torch.tables import MODES
+
+    bad = np.zeros((2, 16), np.uint8)
+    bad[0, 0] = 69
+    bad[1, 0] = 0x1D
+    ofs = MODES[2].field_offsets["pattern"]
+    for b in range(5):
+        bad[1, (ofs + b) // 8] |= 1 << ((ofs + b) % 8)
+    return bad
+
+
+def uastc_texture_slices(full_np: np.ndarray) -> list:
+    """Phase 9's file: SLICES slices of SLICE_BLOCKS_X² blocks of full_np, as
+    the port's writer takes them."""
+    per_slice = SLICE_BLOCKS_X * SLICE_BLOCKS_X
+    return [
+        dict(blocks=full_np[i * per_slice : (i + 1) * per_slice], nbx=SLICE_BLOCKS_X, nby=SLICE_BLOCKS_X,
+             orig_width=4 * SLICE_BLOCKS_X, orig_height=4 * SLICE_BLOCKS_X, image_index=0, level_index=0)
+        for i in range(SLICES)
+    ]
+
+
+def etc1s_streams():
+    """(endpoints, selectors, four uint16 index streams of N_FULL blocks):
+    phases 15 and 16's seeded ETC1S inputs, codebooks of ETC1S_BOOK entries."""
+    rng = np.random.default_rng(SEED + 1)
+    endpoints, selectors = etc1s_codebooks(rng, ETC1S_BOOK, ETC1S_BOOK)
+    return endpoints, selectors, [rng.integers(0, ETC1S_BOOK, N_FULL).astype(np.uint16) for _ in range(4)]
+
+
+def etc1s_slice(ep, sel, alpha=False) -> dict:
+    """One SLICE_BLOCKS_X² ETC1S slice of the given index streams, as the
+    port's writer takes it."""
+    w = 4 * SLICE_BLOCKS_X
+    return dict(ep_idx=ep, sel_idx=sel, nbx=SLICE_BLOCKS_X, nby=SLICE_BLOCKS_X, orig_width=w, orig_height=w,
+                alpha=alpha)
+
+
+def etc1s_file_layout() -> dict:
+    """Phase 16's two files as {name: [(endpoint stream, selector stream,
+    slice j of those streams, alpha slice?)]}: "array", 8 slices of idx[0],
+    idx[1]; "alpha", 4 (RGB, alpha) pairs, RGB from idx[0], idx[1], alpha
+    from idx[2], idx[3], over the first 4 slices."""
+    return {
+        "array": [(0, 1, j, False) for j in range(SLICES)],
+        "alpha": [(a, b, j, alpha) for j in range(SLICES // 2) for a, b, alpha in ((0, 1, False), (2, 3, True))],
+    }
+
+
+def etc1s_texture_files(endpoints, selectors, idx_np) -> dict:
+    """Phase 16's two N_FULL-block files (etc1s_file_layout): {name:
+    (bytes, slice count, seconds to write)}."""
+    from basisu_rs_tpu_torch.container.writer import write_etc1s_basis
+
+    per = SLICE_BLOCKS_X * SLICE_BLOCKS_X
+    files = {}
+    for name, spec in etc1s_file_layout().items():
+        t0 = time.perf_counter()
+        sl = [etc1s_slice(idx_np[a][j * per:(j + 1) * per], idx_np[b][j * per:(j + 1) * per], alpha)
+              for a, b, j, alpha in spec]
+        buf = write_etc1s_basis(endpoints, selectors, sl, has_alpha=name == "alpha")
+        files[name] = (buf, len(spec), time.perf_counter() - t0)
+    return files
+
+
+def pipeline_corpus(tmp: Path, full_np, endpoints, selectors) -> tuple:
+    """Phase 21's corpus written into tmp: PIPE_UASTC UASTC mip chains of
+    full_np, PIPE_ETC1S ETC1S files (every second with alpha slices), and a
+    corrupt copy of the second file at position 40.  (paths, corrupt
+    path)."""
+    from basisu_rs_tpu_torch.container.writer import write_etc1s_basis, write_uastc_basis
+
+    rng = np.random.default_rng(SEED + 4)
+    paths = []
+    ofs = 0
+    for f in range(PIPE_UASTC):
+        chain = mip_slices(full_np, 1, PIPE_WIDTH, ofs)
+        ofs += sum(len(s) for _, _, s in chain)
+        buf = write_uastc_basis([dict(blocks=s, nbx=nb, nby=nb, orig_width=4 * nb, orig_height=4 * nb,
+                                      image_index=0, level_index=lvl) for lvl, nb, s in chain])
+        paths.append(tmp / f"u{f:02d}.basis")
+        paths[-1].write_bytes(buf)
+    nb = PIPE_WIDTH // 4
+    for f in range(PIPE_ETC1S):
+        alpha = f % 2 == 1
+        sl = [dict(ep_idx=rng.integers(0, ETC1S_BOOK, nb * nb).astype(np.uint16),
+                   sel_idx=rng.integers(0, ETC1S_BOOK, nb * nb).astype(np.uint16), nbx=nb, nby=nb,
+                   orig_width=PIPE_WIDTH, orig_height=PIPE_WIDTH, alpha=a) for a in ((False, True) if alpha else (False,))]
+        paths.append(tmp / f"e{f:02d}.basis")
+        paths[-1].write_bytes(write_etc1s_basis(endpoints, selectors, sl, has_alpha=alpha))
+    corrupt = bytearray(paths[1].read_bytes())
+    corrupt[-100] ^= 0x01
+    bad = tmp / "corrupt.basis"
+    bad.write_bytes(bytes(corrupt))
+    paths.insert(40, bad)
+    return paths, bad
+
+
 def etc1s_tables(etc1s, endpoints, selectors, kind: str, dev):
     """The packed codebooks of `kind` on the card: endpoint words, and
     selector words (wire words for "etc1")."""
@@ -316,25 +442,11 @@ def etc1s_file_path(etc1s, basis, readers, dev, card: str, endpoints, selectors,
 
     per = SLICE_BLOCKS_X * SLICE_BLOCKS_X
     w = 4 * SLICE_BLOCKS_X
-
-    def slice_dict(ep, sel, alpha=False):
-        return dict(ep_idx=ep, sel_idx=sel, nbx=SLICE_BLOCKS_X, nby=SLICE_BLOCKS_X, orig_width=w, orig_height=w,
-                    alpha=alpha)
-
-    # file A: 8 slices of idx[0], idx[1]; file B: 4 (RGB, alpha) pairs, RGB
-    # from idx[0], idx[1], alpha from idx[2], idx[3], over the first 4 slices
-    layout = {
-        "array": [(0, 1, j, False) for j in range(SLICES)],
-        "alpha": [(a, b, j, alpha) for j in range(SLICES // 2) for a, b, alpha in ((0, 1, False), (2, 3, True))],
-    }
     files = {}
-    for name, spec in layout.items():
-        t0 = time.perf_counter()
-        sl = [slice_dict(idx_np[a][j * per:(j + 1) * per], idx_np[b][j * per:(j + 1) * per], alpha)
-              for a, b, j, alpha in spec]
-        files[name] = write_etc1s_basis(endpoints, selectors, sl, has_alpha=name == "alpha")
-        print(f"phase 16 file {name}: {len(spec)} slices of {w}x{w} texels, {len(files[name])} bytes, written in "
-              f"{time.perf_counter() - t0:.2f} s (host)")
+    for name, (buf, n_slices, seconds) in etc1s_texture_files(endpoints, selectors, idx_np).items():
+        files[name] = buf
+        print(f"phase 16 file {name}: {n_slices} slices of {w}x{w} texels, {len(buf)} bytes, written in "
+              f"{seconds:.2f} s (host)")
 
     tables = {k: etc1s_tables(etc1s, endpoints, selectors, k, dev) for k in etc1s.KINDS}
 
@@ -342,6 +454,8 @@ def etc1s_file_path(etc1s, basis, readers, dev, card: str, endpoints, selectors,
         out = torch.empty(streams[0].shape[0], etc1s.OUT_BYTES[kind], dtype=torch.uint8, device=dev)
         etc1s.PLAIN[kind](*tables[kind], streams, out)
         return out
+
+    layout = etc1s_file_layout()
 
     def check_images(name, reader_name, images):
         spec = layout[name]
@@ -418,9 +532,9 @@ def etc1s_file_path(etc1s, basis, readers, dev, card: str, endpoints, selectors,
 
     corrupt = bytearray(files["array"])
     corrupt[-1000] ^= 0x10
-    odd = write_etc1s_basis(endpoints, selectors, [slice_dict(idx_np[0][:per], idx_np[1][:per]),
-                                                   slice_dict(idx_np[2][:per], idx_np[3][:per], True),
-                                                   slice_dict(idx_np[0][per:2 * per], idx_np[1][per:2 * per])],
+    odd = write_etc1s_basis(endpoints, selectors, [etc1s_slice(idx_np[0][:per], idx_np[1][:per]),
+                                                   etc1s_slice(idx_np[2][:per], idx_np[3][:per], True),
+                                                   etc1s_slice(idx_np[0][per:2 * per], idx_np[1][per:2 * per])],
                             has_alpha=True)
     for label, buf, msg in (("corrupt CRC", bytes(corrupt), "Data CRC16 failed"),
                             ("odd-slice alpha", odd, "File has alpha, but slice count is odd")):
@@ -433,6 +547,7 @@ def etc1s_file_path(etc1s, basis, readers, dev, card: str, endpoints, selectors,
                 raise RuntimeError(f"{label} ETC1S file accepted by read_to_{reader_name}")
     print(f"phase 16 errors: a corrupt-CRC ETC1S file and an odd-slice alpha file raise the reference's messages "
           f"through read_to_rgba/read_to_etc1 [{card}]")
+    return files
 
 
 def probe_phase(dev, card: str) -> dict:
@@ -726,34 +841,11 @@ def pipeline_phase(dev, card: str, full_np, endpoints, selectors, read_to_rgba, 
     """Phase 21: the corpus pipeline over files on disk."""
     import tempfile
 
-    from basisu_rs_tpu_torch.container.writer import write_etc1s_basis, write_uastc_basis
     from basisu_rs_tpu_torch.models import BasisCorpusPipeline, PipelineState
 
-    rng = np.random.default_rng(SEED + 4)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_") as tmp:
         t0 = time.perf_counter()
-        paths = []
-        ofs = 0
-        for f in range(PIPE_UASTC):
-            chain = mip_slices(full_np, 1, PIPE_WIDTH, ofs)
-            ofs += sum(len(s) for _, _, s in chain)
-            buf = write_uastc_basis([dict(blocks=s, nbx=nb, nby=nb, orig_width=4 * nb, orig_height=4 * nb,
-                                          image_index=0, level_index=lvl) for lvl, nb, s in chain])
-            paths.append(Path(tmp) / f"u{f:02d}.basis")
-            paths[-1].write_bytes(buf)
-        nb = PIPE_WIDTH // 4
-        for f in range(PIPE_ETC1S):
-            alpha = f % 2 == 1
-            sl = [dict(ep_idx=rng.integers(0, ETC1S_BOOK, nb * nb).astype(np.uint16),
-                       sel_idx=rng.integers(0, ETC1S_BOOK, nb * nb).astype(np.uint16), nbx=nb, nby=nb,
-                       orig_width=PIPE_WIDTH, orig_height=PIPE_WIDTH, alpha=a) for a in ((False, True) if alpha else (False,))]
-            paths.append(Path(tmp) / f"e{f:02d}.basis")
-            paths[-1].write_bytes(write_etc1s_basis(endpoints, selectors, sl, has_alpha=alpha))
-        corrupt = bytearray(paths[1].read_bytes())
-        corrupt[-100] ^= 0x01
-        bad = Path(tmp) / "corrupt.basis"
-        bad.write_bytes(bytes(corrupt))
-        paths.insert(40, bad)
+        paths, bad = pipeline_corpus(Path(tmp), full_np, endpoints, selectors)
         nbytes = sum(p.stat().st_size for p in paths)
         print(f"phase 21 corpus: {PIPE_UASTC} UASTC files ({PIPE_WIDTH}x{PIPE_WIDTH}, mips to 4x4), {PIPE_ETC1S} "
               f"ETC1S files ({PIPE_ETC1S // 2} with alpha slices), 1 corrupt file, {nbytes} bytes, written in "
@@ -858,7 +950,252 @@ def cli_phase(card: str, full_np, endpoints, selectors) -> None:
           f"(etc2) and png (rgba, {len(images)} files) byte-equal to the writers applied to the readers' output")
 
 
-def main() -> int:
+def sharded_phase(dev, card: str, full_np, full, uastc_buf, etc1s_files, endpoints, selectors, idx_np, bad) -> None:
+    """Phase 24: the sharded path (basisu_rs_tpu_torch.parallel) on the
+    card, every output held bit-exact against the single-device path."""
+    import contextlib
+    import io
+    import tempfile
+
+    from basisu_rs_tpu_torch import BasisError, read_to_bc7, read_to_etc1, read_to_rgba, transcode_uastc_blocks
+    from basisu_rs_tpu_torch.__main__ import main as cli_main
+    from basisu_rs_tpu_torch.container.writer import write_uastc_basis
+    from basisu_rs_tpu_torch.ops import etc1s, kernels
+    from basisu_rs_tpu_torch.ops.dispatch import dispatch, partition, transcode_blocks
+    from basisu_rs_tpu_torch.parallel import make_mesh, sharded_etc1s_transcode, sharded_transcode
+    from basisu_rs_tpu_torch.parallel.mesh import _bounds as bounds
+
+    mesh1 = make_mesh(1)
+    require(mesh1 == (dev,), f"make_mesh(1) gave {mesh1}")
+    four = [dev] * 4
+    meshes = {"make_mesh(1)": mesh1}
+    n_cards = torch.cuda.device_count()
+    for n in sorted({2, n_cards}):
+        if 2 <= n <= n_cards:
+            meshes[f"make_mesh({n})"] = make_mesh(n)
+
+    def shard_launches_ms(blocks, t, n_shards):
+        """Device time of the sharded call's launches alone (each shard's
+        partition taken beforehand), as the call sends them."""
+        shards = [blocks[a:b] for a, b in bounds(blocks.shape[0], n_shards)]
+        parts = [partition(s) for s in shards]
+        out = torch.empty(blocks.shape[0], kernels.OUT_BYTES[t], dtype=torch.uint8, device=dev)
+        err = torch.empty(blocks.shape[0], dtype=torch.bool, device=dev)
+
+        def run():
+            for (a, b), s, (order, counts) in zip(bounds(blocks.shape[0], n_shards), shards, parts):
+                dispatch(s, t, order, counts, out=out[a:b], err=err[a:b])
+
+        return median_ms(run, preload=True)
+
+    def check_uastc(label, blocks, t, mesh, launches_each):
+        ref_out, ref_err = transcode_blocks(blocks, t)
+        sharded_transcode(blocks, t, mesh)  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        out, err = sharded_transcode(blocks, t, mesh)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()[t]
+        plain_calls = sum(sum(c) for c in kernels.plain_call_counts().values())
+        require(launches == [launches_each] * 19, f"{label} {t}: launch counts {launches}")
+        require(plain_calls == 0, f"{label} {t}: plain version called on the sharded path: {plain_calls}")
+        require(out.dtype == ref_out.dtype and out.shape == ref_out.shape and out.device == dev,
+                f"{label} {t}: output {out.dtype} {tuple(out.shape)} {out.device}")
+        require(bool(torch.equal(out, ref_out)) and bool(torch.equal(err, ref_err)),
+                f"{label} {t}: sharded output or err differs from the single-device path")
+        return out, err, launches
+
+    def timed_pair(single, sharded):
+        """Median ms of 10 warm whole calls each, in the order single,
+        sharded, sharded, single."""
+        s1, m1, m2, s2 = (statistics.median(times_ms(f)) for f in (single, sharded, sharded, single))
+        return (s1, s2), (m1, m2)
+
+    # ---- (a), (f): UASTC on make_mesh(1) (and make_mesh(2)) at 2^23 blocks
+    for name, mesh in meshes.items():
+        for t in TARGETS:
+            _, _, launches = check_uastc(name, full, t, mesh, len(mesh))
+            (s1, s2), (m1, m2) = timed_pair(lambda: transcode_uastc_blocks(full, t),
+                                            lambda: sharded_transcode(full, t, mesh))
+            dev_ms = shard_launches_ms(full, t, len(mesh)) if len(mesh) == 1 else None
+            dev_line = f"; launches' device time {dev_ms:.4f} ms" if dev_ms is not None else ""
+            print(f"phase 24 {t} sharded_transcode on {name} [{card}]: {N_FULL} blocks bit-exact vs transcode_blocks "
+                  f"(tolerance 0, max abs err 0); launches {launches}; plain-version calls 0; whole call (CUDA events, "
+                  f"warm, median of {REPS}, single, mesh, mesh, single) single-device {s1:.4f} / {s2:.4f} ms, "
+                  f"{name} {m1:.4f} / {m2:.4f} ms = {100 * (m1 + m2) / (s1 + s2):.1f}% of the single-device call"
+                  + dev_line)
+
+    # ---- (b): four shards on the one card, ragged, with invalid blocks -----
+    n_b = N_FULL + 3
+    per = -(-n_b // 4)
+    i_mode, i_pat = 2 * per + per // 3, 3 * per + per // 5  # inside the third and the fourth shard
+    blocks_np = np.concatenate([full_np, full_np[:3]])
+    blocks_np[i_mode], blocks_np[i_pat] = bad[0], bad[1]
+    blocks_b = torch.from_numpy(blocks_np).to(dev)
+    for t in TARGETS:
+        _, err, launches = check_uastc("[cuda:0] x 4", blocks_b, t, four, 4)
+        bad_rows = torch.nonzero(err).flatten().tolist()
+        require(bad_rows == [i_mode, i_pat], f"[cuda:0] x 4 {t}: err at {bad_rows}, expected {[i_mode, i_pat]}")
+    (s1, s2), (m1, m2) = timed_pair(lambda: transcode_uastc_blocks(blocks_b, "bc7"),
+                                    lambda: sharded_transcode(blocks_b, "bc7", four))
+    print(f"phase 24 [cuda:0] x 4 [{card}]: {n_b} blocks in shards of {per} and {n_b - 3 * per}, invalid mode at "
+          f"{i_mode} (third shard), invalid pattern at {i_pat} (fourth); out and err == the single-device path for "
+          f"{', '.join(TARGETS)} (tolerance 0), err exactly at those rows, 4 launches a mode, 0 plain calls; bc7 whole "
+          f"call single-device {s1:.4f} / {s2:.4f} ms, four shards {m1:.4f} / {m2:.4f} ms; the 76 launches' device "
+          f"time {shard_launches_ms(blocks_b, 'bc7', 4):.4f} ms against {shard_launches_ms(blocks_b, 'bc7', 1):.4f} ms "
+          f"for the 19 of one shard")
+    del blocks_b
+    slice_blocks = SLICE_BLOCKS_X * SLICE_BLOCKS_X
+    for order, msg in (((i_mode, bad[0]), (i_pat, bad[1])), "invalid mode index"), \
+                      (((i_mode, bad[1]), (i_pat, bad[0])), "block pattern is not valid"):
+        file_np = np.concatenate([full_np, full_np[:3]])
+        for row, block in order:
+            file_np[row] = block
+        bad_buf = write_uastc_basis(
+            [dict(blocks=file_np[k * slice_blocks:(k + 1) * slice_blocks], nbx=SLICE_BLOCKS_X, nby=SLICE_BLOCKS_X,
+                  orig_width=4 * SLICE_BLOCKS_X, orig_height=4 * SLICE_BLOCKS_X) for k in range(SLICES)]
+            + [dict(blocks=file_np[N_FULL:], nbx=3, nby=1, orig_width=12, orig_height=4)])
+        for mesh in (None, mesh1, four):
+            try:
+                read_to_bc7(bad_buf, mesh=mesh)
+            except BasisError as e:
+                require(str(e) == msg, f"read_to_bc7(mesh={mesh}): message {e!r}, expected {msg!r}")
+            else:
+                raise RuntimeError(f"read_to_bc7(mesh={mesh}) accepted a file with invalid blocks")
+        print(f"phase 24 errors [{card}]: a {SLICES + 1}-slice file of {n_b} blocks, rows {i_mode} and {i_pat} "
+              f"invalid, raises {msg!r} through read_to_bc7 with no mesh, make_mesh(1) and [cuda:0] x 4")
+    del file_np, bad_buf
+
+    # ---- (c), (f): ETC1S on every mesh --------------------------------------
+    idx = [torch.from_numpy(a).to(dev) for a in idx_np]
+    single = {
+        "rgba": lambda: etc1s.run_etc1s_rgba(endpoints, selectors, idx[0], idx[1]),
+        "rgba_alpha": lambda: etc1s.run_etc1s_rgba(endpoints, selectors, idx[0], idx[1], (idx[2], idx[3])),
+        # K7 has no entry of its own: its wrapper, after packing the codebooks as the entries do
+        "alpha": lambda: etc1s.etc1s_kernel("alpha")(*etc1s_tables(etc1s, endpoints, selectors, "alpha", dev),
+                                                     idx[0], idx[1]).view(torch.uint32),
+        "etc1": lambda: etc1s.run_etc1s_etc1(endpoints, selectors, idx[0], idx[1]),
+    }
+    for name, mesh in {**meshes, "[cuda:0] x 4": four}.items():
+        for kind in etc1s.KINDS:
+            extra = (idx[2], idx[3]) if kind == "rgba_alpha" else ()
+
+            def sharded(kind=kind, mesh=mesh, extra=extra):
+                return sharded_etc1s_transcode(kind, endpoints, selectors, idx[0], idx[1], mesh, extra_idx=extra)
+
+            ref = single[kind]()
+            sharded()  # warm-up
+            torch.cuda.synchronize()
+            etc1s.reset_counts()
+            got = sharded()
+            torch.cuda.synchronize()
+            launches, plain_calls = etc1s.launch_counts(), etc1s.plain_call_counts()
+            n_mesh = len(mesh)
+            require(launches == {k: n_mesh * (k == kind) for k in etc1s.KINDS}, f"{name} {kind}: launches {launches}")
+            require(sum(plain_calls.values()) == 0, f"{name} {kind}: plain version called: {plain_calls}")
+            require(got.dtype == ref.dtype and got.shape == ref.shape and got.device == dev and bool(torch.equal(got, ref)),
+                    f"{name} {kind}: sharded_etc1s_transcode differs from the single-device entry")
+            del got, ref
+            (s1, s2), (m1, m2) = timed_pair(single[kind], sharded)
+            print(f"phase 24 etc1s {kind} on {name} [{card}]: {N_FULL} blocks bit-exact vs the single-device entry "
+                  f"(tolerance 0); launches {launches[kind]}; plain calls 0; whole call (median of {REPS}) single-device "
+                  f"{s1:.4f} / {s2:.4f} ms, {name} {m1:.4f} / {m2:.4f} ms")
+    del idx
+    torch.cuda.empty_cache()
+
+    # ---- (d): the file readers with mesh= -----------------------------------
+    reads = [("uastc 8x4096²", uastc_buf, "bc7", lambda b, **k: read_to_bc7(b, **k)),
+             ("uastc 8x4096²", uastc_buf, "rgba", lambda b, **k: read_to_rgba(b, **k)[1]),
+             ("uastc 8x4096²", uastc_buf, "etc1", lambda b, **k: read_to_etc1(b, **k))]
+    reads += [(f"etc1s {name}", buf, reader, fn) for name, buf in etc1s_files.items()
+              for reader, fn in (("rgba", lambda b, **k: read_to_rgba(b, **k)[1]),
+                                 ("etc1", lambda b, **k: read_to_etc1(b, **k)))]
+    for label, buf, reader, fn in reads:
+        ref = fn(buf)
+        for name, mesh in (("make_mesh(1)", mesh1), ("[cuda:0] x 4", four)):
+            kernels.reset_counts()
+            etc1s.reset_counts()
+            images = fn(buf, mesh=mesh)
+            torch.cuda.synchronize()
+            if label.startswith("uastc"):
+                launched = kernels.launch_counts()[reader]
+                require(launched == [len(mesh)] * 19, f"{label} read_to_{reader} on {name}: launches {launched}")
+            else:
+                kind = "rgba_alpha" if reader == "rgba" and label == "etc1s alpha" else reader
+                launched = etc1s.launch_counts()
+                require(launched == {k: len(mesh) * (k == kind) for k in etc1s.KINDS},
+                        f"{label} read_to_{reader} on {name}: launches {launched}")
+            plain_calls = (sum(sum(c) for c in kernels.plain_call_counts().values())
+                           + sum(etc1s.plain_call_counts().values()))
+            require(plain_calls == 0, f"{label} read_to_{reader} on {name}: {plain_calls} plain calls")
+            require(len(images) == len(ref), f"{label} read_to_{reader} on {name}: {len(images)} images")
+            for img, r in zip(images, ref):
+                require((img.w, img.h, img.stride) == (r.w, r.h, r.stride) and img.data.device == dev
+                        and bool(torch.equal(img.data, r.data)),
+                        f"{label} read_to_{reader} on {name}: an image differs from the read without a mesh")
+            del images
+        del ref
+        print(f"phase 24 read [{card}]: {label} read_to_{reader} with mesh=make_mesh(1) and mesh=[cuda:0] x 4, "
+              f"images bit-exact vs the read without a mesh; one launch a present mode or kind a shard, 0 plain calls")
+    split = {name: host_ms(lambda mesh=mesh: read_to_bc7(uastc_buf, mesh=mesh))
+             for name, mesh in (("no mesh", None), ("make_mesh(1)", mesh1), ("[cuda:0] x 4", four))}
+    print(f"phase 24 read time [{card}] (host clock + sync, median of {FILE_REPS}): read_to_bc7 of the 128 MiB file "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items()))
+    torch.cuda.empty_cache()
+
+    # ---- (e): the CLI's --mesh ----------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        chain = mip_slices(full_np, 1, PIPE_WIDTH)
+        src = Path(tmp) / "tex.basis"
+        src.write_bytes(write_uastc_basis([dict(blocks=b, nbx=nb, nby=nb, orig_width=4 * nb, orig_height=4 * nb,
+                                                image_index=0, level_index=lvl) for lvl, nb, b in chain]))
+        outs = {}
+        for mesh_args in ((), ("--mesh", "1")):
+            out = Path(tmp) / f"out{len(mesh_args)}"
+            with contextlib.redirect_stdout(io.StringIO()):
+                require(cli_main(["transcode", str(src), "--target", "bc7", *mesh_args, "-o", str(out)]) == 0,
+                        f"transcode {' '.join(mesh_args)}")
+            outs[mesh_args] = {p.name: p.read_bytes() for p in sorted(out.iterdir())}
+        require(outs[()] and outs[()] == outs[("--mesh", "1")], "transcode --mesh 1 differs from the unsharded run")
+        too_many = n_cards + 1
+        err_text = io.StringIO()
+        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(err_text):
+            rc = cli_main(["transcode", str(src), "--mesh", str(too_many), "-o", str(Path(tmp) / "refused")])
+        expect = (f"--mesh {too_many}: requested a {too_many}-device mesh but CUDA has {n_cards} device(s); for a "
+                  "sharding dry run on CPU devices pass allow_cpu_fallback=True\n")
+        require(rc == 2 and err_text.getvalue() == expect, f"--mesh {too_many}: rc {rc}, stderr {err_text.getvalue()!r}")
+    print(f"phase 24 cli [{card}]: transcode --mesh 1 writes the {len(outs[()])} files of the unsharded run byte for "
+          f"byte; --mesh {too_many} exits with rc 2 and the mesh's message ({n_cards} card(s))")
+    if n_cards < 2:
+        print(f"phase 24 [{card}]: {n_cards} card on this machine: the split across cards (make_mesh(n), n > 1) was "
+              f"proved on the CPU only (tests/test_torch_parallel.py)")
+
+
+def sharded_phase_alone(dev, card: str) -> int:
+    """`--phase 24`: the build and phase 24 on the inputs main() gives it."""
+    from basisu_rs_tpu_torch.container.writer import write_uastc_basis
+    from basisu_rs_tpu_torch.ops import build
+
+    so, seconds = build.build()
+    print(f"phase 2 build: {so.name} in {seconds:.2f} s")
+    full_np = tiled_blocks(np.load(FIXTURE)["bc7_in"])
+    full = torch.from_numpy(full_np).to(dev)
+    buf = write_uastc_basis(uastc_texture_slices(full_np))
+    endpoints, selectors, idx_np = etc1s_streams()
+    etc1s_files = {name: b for name, (b, _, _) in etc1s_texture_files(endpoints, selectors, idx_np).items()}
+    t0 = time.perf_counter()
+    sharded_phase(dev, card, full_np, full, buf, etc1s_files, endpoints, selectors, idx_np, invalid_blocks())
+    print(f"phase 24 took {time.perf_counter() - t0:.2f} s")
+    print(card)
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the port's paths on one CUDA card (module docstring).")
+    ap.add_argument("--phase", type=int, choices=(24,), help="run only this phase (and the card facts and build)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card")
 
@@ -879,7 +1216,7 @@ def main() -> int:
     from basisu_rs_tpu_torch.container.writer import write_uastc_basis
     from basisu_rs_tpu_torch.ops import bc7_stages, build, etc1s, kernels
     from basisu_rs_tpu_torch.ops.dispatch import block_modes, partition, transcode_blocks
-    from basisu_rs_tpu_torch.tables import INVALID_MODE, MODES, np_tables
+    from basisu_rs_tpu_torch.tables import INVALID_MODE, np_tables
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -897,6 +1234,8 @@ def main() -> int:
         f"phase 1 card: {card} | torch {torch.__version__} | CUDA {torch.version.cuda} | "
         f"device 0 {torch.cuda.get_device_name(0)} | count {torch.cuda.device_count()}"
     )
+    if args.phase == 24:
+        return sharded_phase_alone(dev, card)
 
     # ---- phase 2: build -----------------------------------------------------
     so, seconds = build.build()
@@ -987,12 +1326,7 @@ def main() -> int:
     require(out.device.type == "cuda", "API result is not on the card")
     require(not bool(err.any()), "golden blocks flagged err")
     require(np.array_equal(out.cpu().numpy(), golden_out["bc7"]), "golden BC7 mismatch")
-    bad = np.zeros((2, 16), np.uint8)
-    bad[0, 0] = 69  # 7-bit code with MODE_LUT value 19: invalid mode
-    bad[1, 0] = 0x1D  # a mode-2 code, pattern field set to 31 (>= 30 patterns)
-    ofs = MODES[2].field_offsets["pattern"]
-    for b in range(5):
-        bad[1, (ofs + b) // 8] |= 1 << ((ofs + b) % 8)
+    bad = invalid_blocks()
     require(int(block_modes(torch.from_numpy(bad))[0]) == INVALID_MODE, "byte 69 is not invalid")
     _, err_bad = transcode_uastc_blocks(bad, "bc7", device="cuda")
     require(bool(err_bad.all()), "invalid mode / pattern not flagged")
@@ -1001,7 +1335,7 @@ def main() -> int:
 
     # ---- phases 5 and 8: main path at full size ------------------------------
     reps = -(-N_FULL // len(golden_in))
-    full_np = np.tile(golden_in, (reps, 1))[:N_FULL]
+    full_np = tiled_blocks(golden_in)
     full = torch.from_numpy(full_np).to(dev)
     expected_np = {t: np.tile(golden_out[t], (reps, 1))[:N_FULL] for t in TARGETS}
     order, counts = partition(full)
@@ -1168,11 +1502,7 @@ def main() -> int:
     # ---- phases 9 and 13: the file path at full size ---------------------------
     per_slice = SLICE_BLOCKS_X * SLICE_BLOCKS_X
     t0 = time.perf_counter()
-    slices = [
-        dict(blocks=full_np[i * per_slice : (i + 1) * per_slice], nbx=SLICE_BLOCKS_X, nby=SLICE_BLOCKS_X,
-             orig_width=4 * SLICE_BLOCKS_X, orig_height=4 * SLICE_BLOCKS_X, image_index=0, level_index=0)
-        for i in range(SLICES)
-    ]
+    slices = uastc_texture_slices(full_np)
     buf = write_uastc_basis(slices)
     print(f"phase 9 file: {SLICES} slices of {4 * SLICE_BLOCKS_X}x{4 * SLICE_BLOCKS_X} texels, {len(buf)} bytes, "
           f"written in {time.perf_counter() - t0:.2f} s (host)")
@@ -1205,12 +1535,12 @@ def main() -> int:
         del images
 
         descs = basis.read_slice_descs(buf, basis.read_header(buf))
-        blocks, _ = basis.uastc_payload(buf, descs, dev)
+        blocks = basis.uastc_host_payload(buf, descs)[0].to(dev)
         out, err = transcode_blocks(blocks, t)
         slices_rows = [(d, k * per_slice, (k + 1) * per_slice) for k, d in enumerate(descs)]
         split = {
             "header + CRC, host": host_ms(lambda: basis._validated(buf)),
-            "H2D copy": host_ms(lambda: basis.uastc_payload(buf, descs, dev)),
+            "H2D copy": host_ms(lambda: basis.uastc_host_payload(buf, descs)[0].to(dev)),
             "transcode_blocks": host_ms(lambda: transcode_blocks(blocks, t)),
             "err check": host_ms(lambda: basis._check_errs(err, blocks)),
         }
@@ -1267,17 +1597,15 @@ def main() -> int:
 
     # ---- phases 14-16: the ETC1S back-end (K6-K9) and its files ----------------
     etc1s_max_abs = etc1s_kernel_vs_plain(etc1s, dev, card)
-    rng = np.random.default_rng(SEED + 1)
-    endpoints, selectors = etc1s_codebooks(rng, ETC1S_BOOK, ETC1S_BOOK)
-    idx_np = [rng.integers(0, ETC1S_BOOK, N_FULL).astype(np.uint16) for _ in range(4)]
+    endpoints, selectors, idx_np = etc1s_streams()
     idx = [torch.from_numpy(a).to(dev) for a in idx_np]
     etc1s_results = etc1s_main_path(etc1s, dev, card, endpoints, selectors, idx)
-    etc1s_file_path(etc1s, basis, {"rgba": lambda b: read_to_rgba(b)[1], "etc1": read_to_etc1}, dev, card,
-                    endpoints, selectors, idx_np, idx)
+    etc1s_files = etc1s_file_path(etc1s, basis, {"rgba": lambda b: read_to_rgba(b)[1], "etc1": read_to_etc1}, dev,
+                                  card, endpoints, selectors, idx_np, idx)
     del idx
     torch.cuda.empty_cache()
 
-    # ---- phases 17-22: P, T1, the corpus layer and the CLI ---------------------
+    # ---- phases 17-24: P, T1, the corpus layer, the CLI and the sharded path ---
     def timed(phase: int, fn):
         t0 = time.perf_counter()
         out = fn()
@@ -1293,6 +1621,7 @@ def main() -> int:
     timed(22, lambda: cli_phase(card, full_np, endpoints, selectors))
     timed(23, lambda: contiguous_modes(kernels, dev, card, golden_in, golden_out, block_bytes, shape,
                                        {t: results[t]["mode_ms"] for t in TARGETS}, counts))
+    timed(24, lambda: sharded_phase(dev, card, full_np, full, buf, etc1s_files, endpoints, selectors, idx_np, bad))
 
     result = {
         "kernels": [

@@ -3,8 +3,9 @@ package's (python -m basisu_rs_tpu --platform cpu), on the CPU.
 
 Both CLIs run in this process through their `main(argv)`: `info` JSON,
 every container of `transcode` (files and bytes equal, tolerance 0), the
-refusal codes and messages, and `selftest`.  The port runs with
-`--device cpu`; its default `--device cuda` raises without a card."""
+refusal codes and messages, `selftest`, and `transcode --mesh`.  The port
+runs with `--device cpu`; its default `--device cuda` raises without a
+card."""
 
 import json
 
@@ -82,3 +83,30 @@ def test_default_device_needs_a_card(files, tmp_path, monkeypatch):
         main(["transcode", str(files / "tex.basis"), "-o", str(tmp_path)])
     with pytest.raises(SystemExit):
         main(["--device", "tpu", "selftest"])
+
+
+@pytest.mark.parametrize("name,target", [("tex.basis", "bc7"), ("tex.basis", "rgba"), ("alpha.basis", "etc1"),
+                                         ("tex.basis", "uastc")])
+def test_transcode_mesh_writes_the_same_files(files, tmp_path, capsys, name, target):
+    """--device cpu --mesh 3 shards over three CPU "devices" and writes the
+    bytes the unsharded run writes (uastc ignores --mesh)."""
+    args = ["--device", "cpu", "transcode", str(files / name), "--target", target]
+    assert main([*args, "--mesh", "3", "-o", str(tmp_path / "mesh")]) == 0
+    assert main([*args, "-o", str(tmp_path / "one")]) == 0
+    mesh, one = _outputs(tmp_path / "mesh"), _outputs(tmp_path / "one")
+    assert mesh and mesh == one
+
+
+def test_transcode_mesh_needs_the_cards(files, tmp_path, capsys, monkeypatch):
+    """On the card, more devices than exist exit with rc 2 and the mesh's
+    message before any read, as the JAX CLI does; so does a negative N."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    args = ["transcode", str(files / "tex.basis"), "-o", str(tmp_path)]
+    assert main([*args, "--mesh", "2"]) == 2
+    assert capsys.readouterr().err == (
+        "--mesh 2: requested a 2-device mesh but CUDA has 0 device(s); for a sharding dry run on CPU devices "
+        "pass allow_cpu_fallback=True\n")
+    assert not list(tmp_path.iterdir())
+    for device in ("cuda", "cpu"):
+        assert main(["--device", device, *args, "--mesh", "-1"]) == 2
+        assert capsys.readouterr().err.startswith("--mesh -1: a mesh needs at least one device")

@@ -4,15 +4,17 @@ against the JAX package's, on the CPU.
 The mixed corpus of tests/test_pipeline.py (two UASTC files, one ETC1S
 file, one corrupt file) goes through both pipelines: the same images
 (tolerance 0), the same `errors` (paths and messages) and the same resume
-result; worker counts do not change the images."""
+result; worker counts and a mesh do not change the images."""
 
 import numpy as np
 import pytest
+import torch
 
 from basisu_rs_tpu.models.pipeline import BasisCorpusPipeline as JaxPipeline
 from basisu_rs_tpu.models.pipeline import PipelineState as JaxState
 from basisu_rs_tpu_torch.api import BasisError
 from basisu_rs_tpu_torch.models import BasisCorpusPipeline, PipelineState
+from basisu_rs_tpu_torch.parallel import make_mesh
 from tests.test_pipeline import _make_corpus
 
 
@@ -62,3 +64,25 @@ def test_pipeline_target_check_and_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BasisCorpusPipeline("rgba")
+
+
+@pytest.mark.parametrize("target", ["rgba", "etc1"])
+def test_pipeline_mesh_matches_single_device(tmp_path, golden, target):
+    """mesh= shards each file's device work (UASTC and ETC1S) and decides
+    over device="cuda", which needs no card beside a mesh: the images and
+    errors of the single-device pipeline."""
+    paths = _make_corpus(tmp_path, golden)
+    with pytest.warns(UserWarning, match="CPU devices"):
+        mesh = make_mesh(3, allow_cpu_fallback=True)
+    pipe = BasisCorpusPipeline(target, workers=2, mesh=mesh)
+    assert [d.type for d in pipe.mesh] == ["cpu"] * 3
+    sharded = list(pipe.run(paths))
+    one = BasisCorpusPipeline(target, workers=2, device="cpu")
+    single = list(one.run(paths))
+    assert [r.path for r in sharded] == [r.path for r in single] and len(sharded) == 3
+    for r, s in zip(sharded, single):
+        assert r.texels == s.texels and len(r.images) == len(s.images)
+        for img, s_img in zip(r.images, s.images):
+            assert (img.w, img.h, img.stride) == (s_img.w, s_img.h, s_img.stride)
+            assert torch.equal(img.data, s_img.data)
+    assert _errors(pipe) == _errors(one)

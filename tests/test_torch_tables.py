@@ -40,18 +40,27 @@ def test_import_leaves_jax_out():
         "print(under or 'none-under-jax-package')\n"
         "print(len([k for k in sys.modules if k.startswith('basisu_rs_tpu_torch.')]))\n"
         "print(all(k in sys.modules for k in ('basisu_rs_tpu_torch.__main__',\n"
-        "                                     'basisu_rs_tpu_torch.tools.ablate_bc7')))\n"
+        "                                     'basisu_rs_tpu_torch.tools.ablate_bc7',\n"
+        "                                     'basisu_rs_tpu_torch.parallel.mesh',\n"
+        "                                     'basisu_rs_tpu_torch.parallel.multihost')))\n"
+        "import torch.distributed as dist\n"
+        "from basisu_rs_tpu_torch.parallel import __all__ as names\n"
+        "print(not dist.is_initialized(), ','.join(names))\n"
     )
     res = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert res.returncode == 0, res.stderr
     # importing the CLI and the T1 tool runs nothing: the four lines above are all the output
-    jax_mods, under, n_port, entry_points = res.stdout.splitlines()
+    jax_mods, under, n_port, entry_points, parallel = res.stdout.splitlines()
     assert jax_mods == "no-jax"
     assert under == "none-under-jax-package"
-    assert int(n_port) >= 39  # every module of the port was imported
+    assert int(n_port) >= 42  # every module of the port was imported
     assert entry_points == "True"
+    # importing the parallel package starts no process group; its names are the JAX package's
+    import basisu_rs_tpu.parallel as jax_parallel
+
+    assert parallel == f"True {','.join(jax_parallel.__all__)}"
 
 
 def test_header_matches_generator():
