@@ -4,9 +4,10 @@
 // Replaces the TPU kernels of tools/ablate_bc7.py::build_stage_kernel
 // (pl.pallas_call at :58), one per stage closure of :126-190; the per-block
 // logic is in uastc_bc7_stages.cuh.  Instantiated: every mode 0-18 for the
-// stages full, decode_endpoints and pbit, and every mode but 8 for
-// decode_weights and decode_fields (93 kernels), the pairs for which the
-// JAX stage functions trace; permute_invert traces for no mode.
+// stages full, decode_endpoints and pbit, every mode but 8 for
+// decode_weights and decode_fields, and the seven modes with a pattern
+// family (1, 2, 3, 4, 7, 9, 16) for permute_invert (100 kernels), the pairs
+// for which the JAX stage functions trace.
 //
 // What bounds it on the H100: 20 bytes of HBM a block (16 in, a 4-byte
 // checksum out) against the stage's integer work, from a few operations
@@ -48,7 +49,7 @@ StageKernelFn stage_kernel() {
 
 #define UB_STAGE_ROW(M)                                                                                  \
   {ub::stage_kernel<M, 0>(), ub::stage_kernel<M, 1>(), ub::stage_kernel<M, 2>(), ub::stage_kernel<M, 3>(), \
-   ub::stage_kernel<M, 4>()}
+   ub::stage_kernel<M, 4>(), ub::stage_kernel<M, 5>()}
 
 // One launch of stage `stage` for UASTC mode `mode` over the n contiguous
 // 16-byte blocks `in` (16-byte aligned), one uint32 checksum a block into

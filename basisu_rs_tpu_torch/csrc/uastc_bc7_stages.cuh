@@ -17,22 +17,29 @@
 //                       UASTC subset: for 2-subset modes the same result is
 //                       XORed twice, the checksum is 0 and the compiler drops
 //                       the search, as XLA does on the TPU
-// The tool's sixth stage, permute_invert, calls bc7._dyn_select, a helper
-// the JAX package no longer has: it traces for no mode, so it has no
-// counterpart here.  Stages 2 and 3 do not trace for mode 8 (the void extent
-// has no weights), so (8, 2) and (8, 3) are not instantiated.
+//   5 permute_invert    decode_fields, then the tool's own permutation,
+//                       anchor and invert arithmetic: the BC7 pattern index,
+//                       each BC7 subset's permuted endpoints (hi where its
+//                       anchor weight's bit 3 is set, else lo) and every
+//                       weight remapped to 4 bits (~w & 15 in those subsets)
+// Stages 2 and 3 do not trace for mode 8 (the void extent has no weights),
+// so (8, 2) and (8, 3) are not instantiated.  Stage 5 exists for the seven
+// modes with a pattern family (1, 2, 3, 4, 7, 9, 16): the closure reads the
+// family's rows, which the other modes do not have.
 #pragma once
 #include "uastc_bc7.cuh"
 
 namespace ub {
 
-constexpr int BC7_STAGES = 5;
+constexpr int BC7_STAGES = 6;
 constexpr int STAGE_FULL = 0, STAGE_DECODE_ENDPOINTS = 1, STAGE_DECODE_WEIGHTS = 2, STAGE_DECODE_FIELDS = 3,
-              STAGE_PBIT = 4;
+              STAGE_PBIT = 4, STAGE_PERMUTE_INVERT = 5;
 
 // whether the JAX stage function of (M, S) traces
 template <int M, int S>
-constexpr bool kStageExists = !(M == 8 && (S == STAGE_DECODE_WEIGHTS || S == STAGE_DECODE_FIELDS));
+constexpr bool kStageExists = S == STAGE_PERMUTE_INVERT
+                                  ? Mode<M>::fam != FAM_NONE
+                                  : !(M == 8 && (S == STAGE_DECODE_WEIGHTS || S == STAGE_DECODE_FIELDS));
 
 template <int N>
 UB_FN uint32_t xor_all(const int32_t (&v)[N]) {
@@ -67,6 +74,66 @@ UB_FN uint32_t anchors_xor(int32_t pat) {
   }
 }
 
+// Stage 5, tools/ablate_bc7.py:154-190.  This is the tool's arithmetic, not
+// K1's invert step: nsub7 is the UASTC subset count, subset 0 is tested too
+// (at texel 0), every weight is remapped to 4 bits, and the 16 weights are
+// XORed one by one.  Every data-dependent index goes through a select chain
+// whose default is element 0, as the tool's _dyn_select does.
+template <int M>
+UB_FN uint32_t permute_invert(const uint32_t (&l)[4]) {
+  using C = Mode<M>;
+  constexpr int nsub = C::subsets;
+  int32_t pat;
+  decode_pattern<M>(l, pat);
+  int32_t ep[C::endpoint_count];
+  decode_endpoints<M>(l, ep);
+  int32_t pr[nsub][2][4];  // [subset][lo/hi][rgba]
+  endpoint_pairs<M>(ep, pr);
+  uint32_t w[16];
+  decode_weights<M>(l, pat, w);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) w[i] = remap_weight<C::weight_bits, 4>(w[i]);
+
+  const int row = Family<C::fam>::base + pat;
+  const uint32_t sp = UB_LDG(&FAM_BC7_PAT_PACKED[row]);      // texel -> BC7 subset, 2 bits a texel
+  const uint32_t ap = UB_LDG(&FAM_BC7_ANCHORS_PACKED[row]);  // anchor texel of subset s: nibble s
+  const uint32_t perm = UB_LDG(&FAM_PERM_PACKED[row]);       // BC7 subset j <- UASTC subset nibble j
+  uint32_t acc = UB_LDG(&FAM_BC7_INDEX[row]);
+
+  bool inv[nsub];
+#pragma unroll
+  for (int s = 0; s < nsub; ++s) {
+    const uint32_t a = s == 0 ? 0u : (ap >> (4 * s)) & 15u;
+    uint32_t v = w[0];
+#pragma unroll
+    for (int k = 1; k < 16; ++k) v = a == static_cast<uint32_t>(k) ? w[k] : v;
+    inv[s] = ((v >> 3) & 1u) != 0u;
+  }
+#pragma unroll
+  for (int j = 0; j < nsub; ++j) {
+    const uint32_t pj = (perm >> (4 * j)) & 15u;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      int32_t vl = pr[0][0][c], vh = pr[0][1][c];
+#pragma unroll
+      for (int s = 1; s < nsub; ++s) {
+        vl = pj == static_cast<uint32_t>(s) ? pr[s][0][c] : vl;
+        vh = pj == static_cast<uint32_t>(s) ? pr[s][1][c] : vh;
+      }
+      acc ^= static_cast<uint32_t>(inv[j] ? vh : vl);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const uint32_t sub = (sp >> (2 * i)) & 3u;
+    bool inv_i = inv[0];
+#pragma unroll
+    for (int s = 1; s < nsub; ++s) inv_i = sub == static_cast<uint32_t>(s) ? inv[s] : inv_i;
+    acc ^= inv_i ? ~w[i] & 15u : w[i];
+  }
+  return acc;
+}
+
 template <int M, int S>
 UB_FN uint32_t bc7_stage(const uint32_t (&l)[4]) {
   using C = Mode<M>;
@@ -91,6 +158,8 @@ UB_FN uint32_t bc7_stage(const uint32_t (&l)[4]) {
       decode_endpoints<M>(l, ep);
       return xor_all(ep) ^ xor_all(w) ^ static_cast<uint32_t>(decode_compsel<M>(l)) ^ static_cast<uint32_t>(pat);
     }
+  } else if constexpr (S == STAGE_PERMUTE_INVERT) {
+    return permute_invert<M>(l);
   } else {
     static_assert(S == STAGE_PBIT, "no such stage");
     uint32_t acc = 0u;

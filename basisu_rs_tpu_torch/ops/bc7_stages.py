@@ -17,16 +17,27 @@ written here over the port's plain helpers (`uastc_decode.py`, `bc7.py`,
                     words 0 and 1), once per UASTC subset; for 2-subset modes
                     the same result is XORed twice and the checksum is 0, in
                     both packages, so those launches time no search
+  permute_invert    decode_fields, then the tool's own permutation, anchor
+                    and invert arithmetic: the BC7 pattern index, each BC7
+                    subset's permuted endpoints (swapped where its anchor
+                    weight's bit 3 is set) and every weight remapped to 4
+                    bits (inverted in the swapped subsets).  It is not K1's
+                    invert step: subset 0 is tested too (at texel 0), mode 2's
+                    weights are remapped to 4 bits, and nsub7 is the UASTC
+                    subset count
 
 Instantiated (mode, stage) pairs, `STAGE_MODES`: the pairs for which the
 JAX stage functions trace.  full, decode_endpoints and pbit trace for every
 mode 0-18; decode_weights and decode_fields for every mode but 8 (the void
-extent has no weights; `decode_fields` asserts it), 93 kernels in all.
-The CUDA side states the same rule once, as `kStageExists` in
-`csrc/uastc_bc7_stages.cuh`; `tests/test_torch_csrc_host.py` holds the two
-equal for every (mode, stage).  The tool's sixth stage, permute_invert (multi-subset modes), calls
-`bc7._dyn_select`, a helper the JAX package no longer has: it traces for no
-mode, so it has no counterpart.
+extent has no weights; `decode_fields` asserts it); permute_invert for the
+seven modes with a pattern family, 1, 2, 3, 4, 7, 9 and 16 (the others have
+no family, or mode 8 no weights, or mode 13 1-bit weights that have no
+4-bit remap): 100 kernels in all.  The tool's closure calls
+`bc7._dyn_select`, a four-line helper that the JAX package has since
+dropped; `_dyn_select` below restates it, and the tests trace the closure
+with the same restatement.  The CUDA side states the same rule once, as
+`kStageExists` in `csrc/uastc_bc7_stages.cuh`;
+`tests/test_torch_csrc_host.py` holds the two equal for every (mode, stage).
 
 `stage_kernel(mode, stage)(blocks)` is the wrapper: a tensor on the CPU
 goes to the plain version (`PLAIN`), a CUDA tensor to the kernel, or the call
@@ -38,15 +49,17 @@ from __future__ import annotations
 
 import torch
 
-from ..tables import MODES, device_tables
+from ..tables import MODES, device_tables, get_family
 from . import bc7, build
 from .bits import M32, extract, lanes_from_bytes
-from .uastc_decode import decode_endpoints, decode_fields, decode_pattern, decode_weights
+from .uastc_decode import (assemble_endpoint_pairs, decode_endpoints, decode_fields, decode_pattern,
+                           decode_weights, fam_row)
 
 STAGES = build.BC7_STAGES  # index = the kernels' S
 STAGE_MODES = {
     s: tuple(m for m in range(19) if not (m == 8 and s in ("decode_weights", "decode_fields"))) for s in STAGES
 }
+STAGE_MODES["permute_invert"] = (1, 2, 3, 4, 7, 9, 16)  # the modes with a pattern family
 
 
 def _xor_all(values):
@@ -87,12 +100,45 @@ def _pbit(cfg, lanes, tables):
     return acc
 
 
+def _dyn_select(values, idx):
+    """values[idx] elementwise, values[0] where idx matches no index."""
+    out = values[0]
+    for k in range(1, len(values)):
+        out = torch.where(idx == k, values[k], out)
+    return out
+
+
+def _permute_invert(cfg, lanes, tables):
+    f = decode_fields(cfg, lanes, tables)
+    pairs = assemble_endpoint_pairs(cfg, f.endpoints)
+    w = [bc7.remap_weight_to_bc7(f.weights[i], cfg.weight_bits, 4) for i in range(16)]
+    row = fam_row(get_family(cfg).name, f.pat)
+    nsub7 = cfg.subset_count
+    pat_packed = tables["FAM_BC7_PAT_PACKED"][row]
+    anch_packed = tables["FAM_BC7_ANCHORS_PACKED"][row]
+    perm_packed = tables["FAM_PERM_PACKED"][row]
+    anchors = [torch.zeros_like(f.pat)] + [(anch_packed >> (4 * k)) & 15 for k in range(1, nsub7)]
+    inv = [((_dyn_select(w, anchors[s]) >> 3) & 1).to(torch.bool) for s in range(nsub7)]
+    acc = tables["FAM_BC7_INDEX"][row]
+    for j in range(nsub7):
+        pj = (perm_packed >> (4 * j)) & 15
+        for c in range(4):
+            lo = _dyn_select([pairs[s][0][c] for s in range(nsub7)], pj)
+            hi = _dyn_select([pairs[s][1][c] for s in range(nsub7)], pj)
+            acc = acc ^ torch.where(inv[j], hi, lo)
+    for i in range(16):
+        inv_i = _dyn_select(inv, (pat_packed >> (2 * i)) & 3)
+        acc = acc ^ torch.where(inv_i, (~w[i]) & 15, w[i])
+    return acc
+
+
 _STAGE_FNS = {
     "full": _full,
     "decode_endpoints": _decode_endpoints,
     "decode_weights": _decode_weights,
     "decode_fields": _decode_fields,
     "pbit": _pbit,
+    "permute_invert": _permute_invert,
 }
 
 

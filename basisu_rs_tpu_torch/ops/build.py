@@ -63,7 +63,7 @@ ETC1S_KINDS = ("rgba", "alpha", "rgba_alpha", "etc1")  # the kernels' KIND 0..3
 # C launch entry point of the K1 stage kernels T1 (csrc/uastc_bc7_stages.cu)
 # and their stages, index = the kernels' S
 BC7_STAGE_LAUNCH = "bc7_stage_launch"
-BC7_STAGES = ("full", "decode_endpoints", "decode_weights", "decode_fields", "pbit")
+BC7_STAGES = ("full", "decode_endpoints", "decode_weights", "decode_fields", "pbit", "permute_invert")
 # C launch entry point of the fl_div255 probe P (csrc/fl_div255_probe.cu)
 PROBE_LAUNCH = "fl_div255_launch"
 

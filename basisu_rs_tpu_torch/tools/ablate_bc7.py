@@ -13,7 +13,10 @@ kernel holds while the host enqueues them, median of REPS:
 launch's HBM bound: 20 bytes a block (16 in, 4 out) at 3.35 TB/s.  The
 `pbit` stage of a 2-subset mode XORs one search result twice, so its
 checksum is 0 and the compiler drops the search: it times no search, as on
-the TPU.  Importing this module runs nothing; the timing needs a card.
+the TPU.  `permute_invert` is timed only for the multi-subset modes, as the
+TPU tool's `main` does (`:197`); mode 1's kernel exists (its one-pattern
+family) and `time_stage` times it on request.  Importing this module runs
+nothing; the timing needs a card.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ LABELS = {
     "decode_weights": "decode_weights",
     "decode_fields": "decode_fields (all)",
     "pbit": "pbit search (fake endpoints)",
+    "permute_invert": "fields+permute+invert",
 }
 
 
@@ -64,12 +68,26 @@ def bound_ms(n_blocks: int) -> float:
     return n_blocks * BLOCK_BYTES / HBM_BYTES_PER_S * 1e3
 
 
+def time_stage(mode: int, stage: str, blocks, log=print) -> dict:
+    """Time one launch of (mode, stage) over blocks (contiguous uint8
+    [n, 16] of that mode on the card): {"blocks", "ms", "bound_ms", "out"},
+    where out holds the checksums of the last timed launch; logs one line."""
+    k = bc7_stages.stage_kernel(mode, stage)
+    n = blocks.shape[0]
+    out = torch.empty(n, dtype=torch.int32, device=blocks.device)
+    k(blocks, out)  # warm-up
+    ms = device_ms(lambda: k(blocks, out))
+    b = bound_ms(n)
+    log(f"  {LABELS[stage]:34s}: {n / ms / 1e3:8.1f} Mblocks/s  ({ms * 1e3:7.2f} us/launch; HBM bound "
+        f"{b * 1e3:6.2f} us at {BLOCK_BYTES} B a block)")
+    return dict(blocks=n, ms=ms, bound_ms=b, out=out)
+
+
 def run(modes=DEFAULT_MODES, device="cuda", log=print, inputs=None) -> dict:
-    """Time every instantiated stage of each mode over inputs[mode]
-    (contiguous uint8 [n, 16] blocks of that mode on the card; by default
-    mode_blocks()).  Returns {(mode, stage): {"blocks", "ms", "bound_ms",
-    "out"}}, where out holds the checksums of the last timed launch, and
-    logs one line a stage."""
+    """Time every instantiated stage of each mode (permute_invert only for
+    multi-subset modes) over inputs[mode] (contiguous uint8 [n, 16] blocks
+    of that mode on the card; by default mode_blocks()).  Returns
+    {(mode, stage): time_stage(...)} and logs one line a stage."""
     device = resolve_device(device)
     if device.type != "cuda":
         raise ValueError("the stage timings are device times: they need a CUDA device")
@@ -82,16 +100,8 @@ def run(modes=DEFAULT_MODES, device="cuda", log=print, inputs=None) -> dict:
         log(f"mode {m} (fmt={cfg.format} subsets={cfg.subset_count} wb={cfg.weight_bits} "
             f"range={cfg.endpoint_range_index} E={cfg.endpoint_count}), {n} blocks")
         for stage in bc7_stages.STAGES:
-            if m not in bc7_stages.STAGE_MODES[stage]:
-                continue
-            k = bc7_stages.stage_kernel(m, stage)
-            out = torch.empty(n, dtype=torch.int32, device=device)
-            k(blocks, out)  # warm-up
-            ms = device_ms(lambda: k(blocks, out))
-            b = bound_ms(n)
-            results[(m, stage)] = dict(blocks=n, ms=ms, bound_ms=b, out=out)
-            log(f"  {LABELS[stage]:34s}: {n / ms / 1e3:8.1f} Mblocks/s  ({ms * 1e3:7.2f} us/launch; HBM bound "
-                f"{b * 1e3:6.2f} us at {BLOCK_BYTES} B a block)")
+            if m in bc7_stages.STAGE_MODES[stage] and (stage != "permute_invert" or cfg.subset_count > 1):
+                results[(m, stage)] = time_stage(m, stage, blocks, log)
     return results
 
 

@@ -8,9 +8,9 @@ ETC1, for index streams and for .basis files).
 Phases, each printing its own lines; any failure raises and exits non-zero:
   1. card facts (nvidia-smi name and power limit, torch and CUDA versions);
   2. nvcc build of csrc/*.cu for sm_90a (one nvcc per source, in parallel),
-     with seconds and the ptxas register/spill report of all 193 kernels
+     with seconds and the ptxas register/spill report of all 200 kernels
      (K1 BC7, K2 ASTC, K3 RGBA, K4 ETC1, K5 ETC2, x 19 UASTC modes; K6-K9,
-     the four ETC1S kinds; the 93 T1 stage kernels; the probe P); for K1-K5
+     the four ETC1S kinds; the 100 T1 stage kernels; the probe P); for K1-K5
      per mode also the resident warps per SM (the CUDA runtime's occupancy
      calculator) and the static SASS instruction count (cuobjdump -sass of
      the built library), and 0 B of spills required of K1-K5;
@@ -72,17 +72,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
  17. P, the fl_div255 probe: the device `ub::fl_div255` on x = 0..255, bit-
      equal to IEEE x/255, and on 0..65,535 against the two-roundings formula
      (for the record: how many of those differ from IEEE x/255), timed;
- 18. T1, the 93 K1 stage kernels (bc7_stage_kernel<M, S>) against their
+ 18. T1, the 100 K1 stage kernels (bc7_stage_kernel<M, S>) against their
      plain versions per (mode, stage), on that mode's golden blocks plus
      65,536 seeded random blocks of the mode, bit-exact;
  19. T1 timing: the stage tool (`basisu_rs_tpu_torch.tools.ablate_bc7`)
      over all 19 modes at its own input (131,072 blocks a mode), device
      time, Mblocks/s and HBM bound per (mode, stage), the checksums of each
      timed launch against the plain version on the same blocks, bit-exact,
-     and the plain version's time; then per mode, on the same 2^23 blocks
-     of that mode, every stage (checked against the plain version) and K1
+     and the plain version's time (mode 1's permute_invert, which the tool
+     leaves out as the TPU tool does, timed beside it through the tool's
+     `time_stage`); then per mode, on the same 2^23 blocks of that mode,
+     every stage the tool times (checked against the plain version) and K1
      (checked against the golden outputs) timed, the `full` stage and the
-     other stages set against K1, with K1's phase-5 time beside them;
+     other stages set against K1, with K1's phase-5 time beside them, and
+     for the multi-subset modes the permute/invert step alone
+     (permute_invert - decode_fields) as a share of full;
  20. the corpus transcoders at full size: 24 mip-chained 2048x2048 UASTC
      textures (8,388,600 blocks in 240 slices) through CorpusTranscoder
      (bc7, rgba) and UastcTranscoder.transcode_async + gather, bit-exact
@@ -166,6 +170,8 @@ ETC1S_BOOK = 2048  # E = S of phases 15 and 16 (bench.py:183)
 ETC1S_INDEX_BYTES = 2  # a uint16 index, read once by the launch
 ETC1S_REPLACES = "basisu_rs_tpu/ops/etc1s_pallas.py:230"
 T1_REPLACES = "tools/ablate_bc7.py:58"
+T1_CLOSURES = {"full": 126, "decode_endpoints": 130, "decode_weights": 134, "decode_fields": 139, "pbit": 143,
+               "permute_invert": 154}  # each stage's closure in tools/ablate_bc7.py
 T1_BLOCK_BYTES = 20  # a stage kernel reads a 16-byte block and writes a 4-byte checksum
 T1_BIG = 1 << 23  # phase 19's second size, blocks a mode: far above the launch floor
 PROBE_REPLACES = "tests/test_pbits.py:73, tests/test_tpu_hardware.py:80"
@@ -628,7 +634,15 @@ def stages_timing(bc7_stages, kernels, dev, card: str, k1_mode_ms: dict, k1_coun
 
     inputs = ablate_bc7.mode_blocks(range(19), dev)
     bc7_stages.reset_counts()
-    res = ablate_bc7.run(range(19), dev, log=lambda line: print(f"phase 19 [{card}] {line}"), inputs=inputs)
+
+    def log(line):
+        print(f"phase 19 [{card}] {line}")
+
+    res = ablate_bc7.run(range(19), dev, log=log, inputs=inputs)
+    for m, stage in ((m, s) for s in bc7_stages.STAGES for m in bc7_stages.STAGE_MODES[s]):
+        if (m, stage) not in res:  # mode 1's permute_invert: the tool leaves it out, as the TPU tool does
+            log(f"mode {m}, {inputs[m].shape[0]} blocks, timed beside the tool:")
+            res[(m, stage)] = ablate_bc7.time_stage(m, stage, inputs[m], log)
     torch.cuda.synchronize()
     launches, plain_calls = bc7_stages.launch_counts(), bc7_stages.plain_call_counts()
     require(all(launches[k] > 0 for k in launches), "a T1 kernel was not launched by the tool")
@@ -671,11 +685,17 @@ def stages_timing(bc7_stages, kernels, dev, card: str, k1_mode_ms: dict, k1_coun
                 f"K1 mode {m} at {T1_BIG} blocks differs from the golden outputs")
         del blocks, k_out, k_err
         full_ms = big[(m, "full")]["ms"]
+        split = ""
+        if (m, "permute_invert") in big:
+            pi_ms = big[(m, "permute_invert")]["ms"] - big[(m, "decode_fields")]["ms"]
+            split = (f"; the permute/invert step alone (permute_invert - decode_fields) {pi_ms:.4f} ms, "
+                     f"{100 * pi_ms / full_ms:.1f}% of full")
         print(f"phase 19 mode {m:2d} [{card}]: on the same {T1_BIG} blocks (checksums == plain, K1 == golden, "
               f"tolerance 0): K1 {k1_big_ms:.4f} ms = {T1_BIG / k1_big_ms / 1e3:.1f} Mblocks/s, T1 full "
               f"{full_ms:.4f} ms ({100 * full_ms / k1_big_ms:.0f}% of K1); stage time as a share of full: "
               + ", ".join(f"{s} {100 * big[(m, s)]['ms'] / full_ms:.0f}%" for s in bc7_stages.STAGES
                           if s != "full" and (m, s) in big)
+              + split
               + f"; at the tool's input T1 full {res[(m, 'full')]['ms']:.4f} ms over {res[(m, 'full')]['blocks']} "
               f"blocks; K1 in phase 5 {k1_mode_ms[m]:.4f} ms over {k1_counts[m]} indexed blocks")
     torch.cuda.empty_cache()
@@ -1267,7 +1287,7 @@ def main(argv=None) -> int:
     require("registers" in r, "no ptxas report for the fl_div255 probe")
     print(f"  ptxas fl_div255_probe_kernel: {r['registers']} registers, {r['stack']} B stack, {r['spill_stores']} B "
           f"spill stores, {r['spill_loads']} B spill loads")
-    require(len(ptxas) == 193, f"ptxas reports {len(ptxas)} kernels, expected 193")
+    require(len(ptxas) == 200, f"ptxas reports {len(ptxas)} kernels, expected 200")
     print("phase 2 ptxas json " + json.dumps({f"{t}/{m}": v for (t, m), v in sorted(ptxas.items(), key=str)}))
     sass = build.sass_counts()
     shape = {}  # (target, mode) -> (registers, resident warps per SM, SASS instructions)
@@ -1662,7 +1682,7 @@ def main(argv=None) -> int:
                 "name": f"bc7_stage_kernel<{m}, {bc7_stages.STAGES.index(stage)}> ({stage})",
                 "route": "cuda",
                 "source": "basisu_rs_tpu_torch/csrc/uastc_bc7_stages.cu",
-                "replaces": T1_REPLACES,
+                "replaces": f"{T1_REPLACES} (closure :{T1_CLOSURES[stage]})",
                 "launches": r["launches"],
                 "max_abs_err": r["max_abs_err"],
                 "ms": r["ms"],

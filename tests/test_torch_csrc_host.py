@@ -107,8 +107,9 @@ static StageFn stage_fn() {
   if constexpr (ub::kStageExists<M, S>) return stage_run<M, S>;
   else return nullptr;
 }
-#define STAGE_ROW(M) {stage_fn<M, 0>(), stage_fn<M, 1>(), stage_fn<M, 2>(), stage_fn<M, 3>(), stage_fn<M, 4>()}
-static const StageFn kStage[19][5] = {STAGE_ROW(0),  STAGE_ROW(1),  STAGE_ROW(2),  STAGE_ROW(3),  STAGE_ROW(4),
+#define STAGE_ROW(M) \
+  {stage_fn<M, 0>(), stage_fn<M, 1>(), stage_fn<M, 2>(), stage_fn<M, 3>(), stage_fn<M, 4>(), stage_fn<M, 5>()}
+static const StageFn kStage[19][6] = {STAGE_ROW(0),  STAGE_ROW(1),  STAGE_ROW(2),  STAGE_ROW(3),  STAGE_ROW(4),
                                       STAGE_ROW(5),  STAGE_ROW(6),  STAGE_ROW(7),  STAGE_ROW(8),  STAGE_ROW(9),
                                       STAGE_ROW(10), STAGE_ROW(11), STAGE_ROW(12), STAGE_ROW(13), STAGE_ROW(14),
                                       STAGE_ROW(15), STAGE_ROW(16), STAGE_ROW(17), STAGE_ROW(18)};
