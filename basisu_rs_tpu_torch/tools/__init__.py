@@ -1,2 +1,2 @@
-"""Measurement tools of the port that run on the card (counterparts of the
-JAX package's `tools/`)."""
+"""Measurement tools of the port (counterparts of the JAX package's
+`tools/`): the card's, and `bench_etc1s_host`, which needs only the host."""

@@ -5,9 +5,10 @@ around work that may still be running on the card when the stage closes:
 a stage that only enqueues launches measures the enqueue, and the card's
 time lands in whichever later stage waits for it (a copy to the host, a
 host read of a count).  Device time comes from CUDA events on a preloaded
-stream (`event_times_ms`, used by `chip_smoke.py` and `tools/ablate_bc7.py`)
-or from `trace`, which records a `torch.profiler` trace of the host and the
-card.
+stream (`event_times_ms`, used by `chip_smoke.py` and `tools/ablate_bc7.py`;
+`event_sequence_ms`, one event between the calls of a sequence, used by
+`bench.py`) or from `trace`, which records a `torch.profiler` trace of the
+host and the card.
 """
 
 from __future__ import annotations
@@ -103,4 +104,33 @@ def event_times_ms(fn, reps: int, launches: int = 1, preload: bool = False) -> l
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / launches)
+    return times
+
+
+def event_sequence_ms(fns, reps: int, preload: bool = False) -> list:
+    """Times of a sequence of calls, in ms: in each of `reps` runs, fns[0](rep),
+    fns[1](rep), ... go in order with one CUDA event between each two, so
+    each call's time is the gap between the events around it.  Returns one
+    list of `reps` times a call.
+
+    Unlike event_times_ms, which repeats one call, a call here is timed
+    after the other calls of the sequence have run, so what they read and
+    write has gone through the L2 cache in between.  preload=True holds the
+    stream with a sleep kernel while the host enqueues a run, as in
+    event_times_ms; only calls that do not wait on the host may be
+    preloaded."""
+    import torch
+
+    times = [[] for _ in fns]
+    for rep in range(reps):
+        if preload:
+            torch.cuda._sleep(PRELOAD_CYCLES)
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(len(fns) + 1)]
+        events[0].record()
+        for fn, event in zip(fns, events[1:]):
+            fn(rep)
+            event.record()
+        torch.cuda.synchronize()
+        for k, t in enumerate(times):
+            t.append(events[k].elapsed_time(events[k + 1]))
     return times

@@ -86,7 +86,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      (checked against the golden outputs) timed, the `full` stage and the
      other stages set against K1, with K1's phase-5 time beside them, and
      for the multi-subset modes the permute/invert step alone
-     (permute_invert - decode_fields) as a share of full;
+     (permute_invert - decode_fields) as a share of full; each stage's
+     2^23-block time beside its bound, the larger of its HBM bound and its
+     issue bound (2^23 / 32 warps x phase 2's SASS count of the stage
+     kernel over 132 SMs x 4 issue slots at the maximum SM clock, as phase
+     23), per mode and summed over the modes;
  20. the corpus transcoders at full size: 24 mip-chained 2048x2048 UASTC
      textures (8,388,600 blocks in 240 slices) through CorpusTranscoder
      (bc7, rgba) and UastcTranscoder.transcode_async + gather, bit-exact
@@ -127,10 +131,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      without one; (e) the CLI's `transcode --mesh 1` writing the bytes of
      the unsharded run, and `--mesh N` past the card count exiting with rc
      2 and the mesh's message; (f) with two or more cards, (a) and (c) on
-     `make_mesh(2)` and on every card as well.
-Phases 17-24 print their seconds.  `python3 chip_smoke.py --phase 24`
-runs phase 1, the build and phase 24 alone, on inputs built as the full
-run builds them.
+     `make_mesh(2)` and on every card as well;
+ 25. the port's benchmark, `python -m basisu_rs_tpu_torch.bench`, as a
+     subprocess at its default size (2^23 blocks, BENCH_FAST unset) under
+     a timeout: exit code 0, a last line that parses with every key of the
+     JAX system's bench.py line but vs_baseline (`bench.LINE_KEYS`) and
+     `device`, every rate finite and above 0, `device.name` the card's
+     name; the line and the bench's stderr are printed.
+Phases 17-25 print their seconds.  `python3 chip_smoke.py --phase 24`
+(or `--phase 25`) runs phase 1, the build and that phase alone, phase 24
+on inputs built as the full run builds them.
 The last two lines before the final one are a JSON line of per-kernel
 results and the card's name and power limit; the final line is the
 `{"ok": true, "device": ...}` result.  Imports torch, numpy and
@@ -140,6 +150,8 @@ basisu_rs_tpu_torch only.
 from __future__ import annotations
 
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -182,6 +194,7 @@ ETC1S_FILES, ETC1S_FILE_SLICES = 64, 2  # phase 20: 64 files x 2 slices x 65,536
 PIPE_UASTC, PIPE_ETC1S, PIPE_WIDTH = 64, 16, 1024  # phase 21's corpus
 KERNEL_THREADS = 256  # threads a CTA of the UASTC kernels (csrc/uastc_decode.cuh kThreads)
 ISSUE_SLOTS = 4  # warp instructions an SM issues a cycle (four schedulers)
+BENCH_TIMEOUT_S = 600  # phase 25's subprocess
 
 
 def require(cond, msg: str) -> None:
@@ -623,12 +636,15 @@ def stages_vs_plain(bc7_stages, dev, card: str, lut, golden_in) -> None:
 
 
 def stages_timing(bc7_stages, kernels, dev, card: str, k1_mode_ms: dict, k1_counts, golden_in,
-                  golden_bc7) -> dict:
+                  golden_bc7, sass) -> dict:
     """Phase 19: the T1 tool over all 19 modes at its own input (the golden
     blocks tiled 4096 times, split by mode), each kernel held against its
     plain version on the blocks it was timed on; then, for each mode, every
     stage and K1 timed on the same T1_BIG blocks of that mode, a size at
-    which the launch floor no longer hides the split of K1's time."""
+    which the launch floor no longer hides the split of K1's time, each
+    stage's time beside its bound: the larger of its HBM bound and its
+    issue bound from `sass` (phase 2's SASS counts), as phase 23 reads
+    K1-K5."""
     from basisu_rs_tpu_torch.ops.dispatch import block_modes
     from basisu_rs_tpu_torch.tools import ablate_bc7
 
@@ -665,6 +681,10 @@ def stages_timing(bc7_stages, kernels, dev, card: str, k1_mode_ms: dict, k1_coun
 
     golden = torch.from_numpy(golden_in).to(dev)
     golden_out, golden_modes = torch.from_numpy(golden_bc7).to(dev), block_modes(golden)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = sm_clock_mhz()
+    hbm = T1_BIG * T1_BLOCK_BYTES / HBM_BYTES_PER_S * 1e3
+    bounds = {}  # stage -> [(mode, device ms, issue bound ms)]
     for m in range(19):
         small, small_out = golden[golden_modes == m], golden_out[golden_modes == m]
         reps = -(-T1_BIG // small.shape[0])
@@ -698,6 +718,24 @@ def stages_timing(bc7_stages, kernels, dev, card: str, k1_mode_ms: dict, k1_coun
               + split
               + f"; at the tool's input T1 full {res[(m, 'full')]['ms']:.4f} ms over {res[(m, 'full')]['blocks']} "
               f"blocks; K1 in phase 5 {k1_mode_ms[m]:.4f} ms over {k1_counts[m]} indexed blocks")
+        parts = []
+        for stage in (s for s in bc7_stages.STAGES if (m, s) in big):
+            instr = sass[(f"bc7_stage/{stage}", m)]
+            issue = T1_BIG / 32 * instr / (sms * ISSUE_SLOTS * clock * 1e6) * 1e3
+            ms = big[(m, stage)]["ms"]
+            bounds.setdefault(stage, []).append((m, ms, issue))
+            parts.append(f"{stage} {ms:.4f} ms, {instr} SASS, issue bound {issue:.4f} ms, bound {max(hbm, issue):.4f} "
+                         f"ms ({100 * max(hbm, issue) / ms:.1f}%)")
+        print(f"phase 19 mode {m:2d} bounds [{card}]: HBM bound {hbm:.4f} ms ({T1_BLOCK_BYTES} B a block); "
+              + "; ".join(parts))
+    for stage, rows in bounds.items():
+        total = sum(ms for _, ms, _ in rows)
+        bound = sum(max(hbm, issue) for _, _, issue in rows)
+        by_issue = [m for m, _, issue in rows if issue > hbm]
+        print(f"phase 19 T1 {stage} [{card}]: {len(rows)} modes at {T1_BIG} blocks a mode, device time summed "
+              f"{total:.4f} ms; bound summed {bound:.4f} ms ({100 * bound / total:.1f}%), the larger of the HBM bound "
+              f"({hbm:.4f} ms a mode) and the issue bound ({sms} SMs x {ISSUE_SLOTS} x {clock:.0f} MHz); issue-bound "
+              f"modes {by_issue}")
     torch.cuda.empty_cache()
     return res
 
@@ -1191,6 +1229,32 @@ def sharded_phase(dev, card: str, full_np, full, uastc_buf, etc1s_files, endpoin
               f"proved on the CPU only (tests/test_torch_parallel.py)")
 
 
+def bench_phase(card: str) -> None:
+    """Phase 25: the port's benchmark as a user runs it, in a subprocess at
+    its default size with BENCH_FAST unset, checked for a whole line."""
+    from basisu_rs_tpu_torch.bench import LINE_KEYS
+
+    env = {k: v for k, v in os.environ.items() if k != "BENCH_FAST"}
+    res = subprocess.run([sys.executable, "-m", "basisu_rs_tpu_torch.bench"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    for line in res.stderr.splitlines():
+        print(f"phase 25 bench stderr: {line}")
+    require(res.returncode == 0, f"python -m basisu_rs_tpu_torch.bench exited with {res.returncode}")
+    lines = res.stdout.strip().splitlines()
+    require(bool(lines), "the bench printed no line")
+    line = json.loads(lines[-1])
+    missing = sorted((set(LINE_KEYS) | {"device"}) - set(line))
+    require(not missing, f"the bench's line lacks {missing}")
+    rates = {k: v for k, v in line.items() if k not in ("metric", "unit", "device", "etc1s_host_degenerate")}
+    bad = {k: v for k, v in rates.items() if not (isinstance(v, (int, float)) and math.isfinite(v) and v > 0)}
+    require(not bad, f"the bench's line has rates that are not finite and above 0: {bad}")
+    name = card.rsplit(",", 1)[0].strip()
+    require(line["device"].get("name") == name, f"the bench's device {line['device']} is not the card {name!r}")
+    print(f"phase 25 bench [{card}]: exit 0, {len(line)} keys (bench.py's but vs_baseline, and device), every rate "
+          f"finite and above 0; the line follows")
+    print("phase 25 bench line " + json.dumps(line))
+
+
 def sharded_phase_alone(dev, card: str) -> int:
     """`--phase 24`: the build and phase 24 on the inputs main() gives it."""
     from basisu_rs_tpu_torch.container.writer import write_uastc_basis
@@ -1214,7 +1278,8 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive the port's paths on one CUDA card (module docstring).")
-    ap.add_argument("--phase", type=int, choices=(24,), help="run only this phase (and the card facts and build)")
+    ap.add_argument("--phase", type=int, choices=(24, 25),
+                    help="run only this phase (and the card facts and build)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card")
@@ -1256,6 +1321,14 @@ def main(argv=None) -> int:
     )
     if args.phase == 24:
         return sharded_phase_alone(dev, card)
+    if args.phase == 25:
+        so, seconds = build.build()
+        print(f"phase 2 build: {so.name} in {seconds:.2f} s")
+        t0 = time.perf_counter()
+        bench_phase(card)
+        print(f"phase 25 took {time.perf_counter() - t0:.2f} s")
+        print(card)
+        return 0
 
     # ---- phase 2: build -----------------------------------------------------
     so, seconds = build.build()
@@ -1301,6 +1374,14 @@ def main(argv=None) -> int:
                   f"warps per SM at {KERNEL_THREADS} threads a CTA, {shape[(t, m)][2]} SASS instructions (cuobjdump "
                   f"-sass, NOPs left out)")
     print("phase 2 shape json " + json.dumps({f"{t}/{m}": v for (t, m), v in shape.items()}))
+    t1_sass = {}
+    for stage in bc7_stages.STAGES:
+        for m in bc7_stages.STAGE_MODES[stage]:
+            key = (f"bc7_stage/{stage}", m)
+            require(key in sass, f"no SASS for T1 {stage} mode {m}")
+            t1_sass[f"{stage}/{m}"] = sass[key]
+    print("phase 2 T1 sass json " + json.dumps(t1_sass) + " (SASS instructions a thread of each "
+          "bc7_stage_kernel<M, S>, cuobjdump -sass, NOPs left out)")
 
     golden = np.load(FIXTURE)
     lut = np_tables()["MODE_LUT"]
@@ -1635,13 +1716,15 @@ def main(argv=None) -> int:
     probe = timed(17, lambda: probe_phase(dev, card))
     timed(18, lambda: stages_vs_plain(bc7_stages, dev, card, lut, golden_in))
     t1 = timed(19, lambda: stages_timing(bc7_stages, kernels, dev, card, results["bc7"]["mode_ms"], counts,
-                                         golden_in, golden_out["bc7"]))
+                                         golden_in, golden_out["bc7"], sass))
     timed(20, lambda: corpus_phase(dev, card, full_np, full, kernels, etc1s))
     timed(21, lambda: pipeline_phase(dev, card, full_np, endpoints, selectors, read_to_rgba, basis))
     timed(22, lambda: cli_phase(card, full_np, endpoints, selectors))
     timed(23, lambda: contiguous_modes(kernels, dev, card, golden_in, golden_out, block_bytes, shape,
                                        {t: results[t]["mode_ms"] for t in TARGETS}, counts))
     timed(24, lambda: sharded_phase(dev, card, full_np, full, buf, etc1s_files, endpoints, selectors, idx_np, bad))
+    torch.cuda.empty_cache()
+    timed(25, lambda: bench_phase(card))
 
     result = {
         "kernels": [
