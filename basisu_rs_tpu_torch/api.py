@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .ops.dispatch import INVALID_MODE, block_modes, check_target, transcode_blocks
+from .utils.profiling import count, span
 
 
 class BasisError(ValueError):
@@ -77,9 +78,21 @@ def block_tensor(blocks) -> torch.Tensor:
     return t.reshape(-1, 16).contiguous()
 
 
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """t on `device` (t itself where it lies there).  A copy from the host
+    to another device runs under the `parallel.h2d` span and adds its bytes
+    to the `h2d_bytes` counter; from pageable memory it holds the host until
+    it is done."""
+    if t.device.type != "cpu" or torch.device(device).type == "cpu":
+        return t.to(device)
+    with span("parallel.h2d"):
+        count("h2d_bytes", t.numel() * t.element_size())
+        return t.to(device)
+
+
 def _as_blocks(blocks, device) -> torch.Tensor:
     device = resolve_device(device)
-    return block_tensor(blocks).to(device)
+    return to_device(block_tensor(blocks), device)
 
 
 def transcode_uastc_blocks(blocks, target: str, device="cuda"):
@@ -87,12 +100,15 @@ def transcode_uastc_blocks(blocks, target: str, device="cuda"):
     (out, err bool [N]) as torch tensors on `device`.  out is uint8 block
     bytes for "bc7", "astc" and "etc2" ([N,16]) and "etc1" ([N,8]), and
     uint32 [N,16] packed RGBA texel words for "rgba"."""
-    check_target(target)
-    return transcode_blocks(_as_blocks(blocks, device), target)
+    with span("api.transcode"):
+        check_target(target)
+        return transcode_blocks(_as_blocks(blocks, device), target)
 
 
 def _one_block(data) -> np.ndarray:
     if isinstance(data, torch.Tensor):
+        if data.device.type != "cpu":
+            count("host_syncs")
         arr = data.detach().cpu().numpy()
     elif isinstance(data, np.ndarray):
         arr = data
@@ -105,14 +121,18 @@ def _one_block(data) -> np.ndarray:
 
 
 def _single(data, target: str, device) -> np.ndarray:
-    block = _as_blocks(_one_block(data), device)
-    out, err = transcode_blocks(block, target)
-    if bool(err[0]):
-        # the reference's two block-level failures (uastc.rs:336, :364)
-        if int(block_modes(block)[0]) == INVALID_MODE:
-            raise BasisError("invalid mode index")
-        raise BasisError("block pattern is not valid")
-    return out[0].cpu().numpy()
+    with span("api.block"):
+        block = _as_blocks(_one_block(data), device)
+        out, err = transcode_blocks(block, target)
+        count("host_syncs")
+        if bool(err[0]):
+            # the reference's two block-level failures (uastc.rs:336, :364)
+            count("host_syncs")
+            if int(block_modes(block)[0]) == INVALID_MODE:
+                raise BasisError("invalid mode index")
+            raise BasisError("block pattern is not valid")
+        count("host_syncs")
+        return out[0].cpu().numpy()
 
 
 def unpack_uastc_block_to_rgba(data, device="cuda") -> np.ndarray:

@@ -38,6 +38,7 @@ from ..api import BasisError, Image, host_tensor
 from ..ops.dispatch import INVALID_MODE, block_modes
 from ..parallel.mesh import resolve_mesh, sharded_etc1s_transcode, sharded_transcode
 from ..tables import UASTC_BLOCK_SIZE
+from ..utils.profiling import count, span
 from .crc import crc16
 from .etc1s_frontend import Etc1sDecoder
 
@@ -219,10 +220,11 @@ def read_slice_descs(buf: bytes, header: Header) -> list[SliceDesc]:
 
 
 def _validated(buf: bytes) -> tuple[Header, list[SliceDesc]]:
-    header = read_header(buf)
-    if not check_file_checksum(buf, header):
-        raise BasisError("Data CRC16 failed")
-    return header, read_slice_descs(buf, header)
+    with span("container.validate"):
+        header = read_header(buf)
+        if not check_file_checksum(buf, header):
+            raise BasisError("Data CRC16 failed")
+        return header, read_slice_descs(buf, header)
 
 
 def _slice_span(buf: bytes, desc: SliceDesc) -> tuple[int, int]:
@@ -244,18 +246,19 @@ def uastc_host_payload(buf: bytes, descs: list[SliceDesc]) -> tuple[torch.Tensor
     is), concatenated in slice order as a uint8 [N,16] CPU tensor (a view
     of buf when those slices lie back to back in it); counts holds each of
     those slices' block count."""
-    spans = []
-    for desc in descs:
-        start, size = _slice_span(buf, desc)
-        if size % UASTC_BLOCK_SIZE:
-            break
-        spans.append((start, size))
-    if spans and all(a + n == b for (a, n), (b, _) in zip(spans, spans[1:])):
-        # slices back to back in the file: one view, no host copy
-        host = _view(buf, (spans[0][0], sum(n for _, n in spans)))
-    else:
-        host = np.concatenate([np.zeros(0, np.uint8)] + [_view(buf, span) for span in spans])
-    return host_tensor(host).reshape(-1, UASTC_BLOCK_SIZE), [n // UASTC_BLOCK_SIZE for _, n in spans]
+    with span("container.payload"):
+        spans = []
+        for desc in descs:
+            start, size = _slice_span(buf, desc)
+            if size % UASTC_BLOCK_SIZE:
+                break
+            spans.append((start, size))
+        if spans and all(a + n == b for (a, n), (b, _) in zip(spans, spans[1:])):
+            # slices back to back in the file: one view, no host copy
+            host = _view(buf, (spans[0][0], sum(n for _, n in spans)))
+        else:
+            host = np.concatenate([np.zeros(0, np.uint8)] + [_view(buf, part) for part in spans])
+        return host_tensor(host).reshape(-1, UASTC_BLOCK_SIZE), [n // UASTC_BLOCK_SIZE for _, n in spans]
 
 
 def _check_errs(err: torch.Tensor, blocks: torch.Tensor) -> None:
@@ -266,13 +269,17 @@ def _check_errs(err: torch.Tensor, blocks: torch.Tensor) -> None:
     or "block pattern is not valid" (uastc.rs:364), the only two per-block
     Err sites.  The kernels report a flag per block in block order; the
     message is derived from the first failing block's mode (blocks may lie
-    on another device than err)."""
-    bad = torch.nonzero(err)
-    if bad.numel():
-        first = int(bad[0, 0])
-        if int(block_modes(blocks[first : first + 1])[0]) == INVALID_MODE:
-            raise BasisError("invalid mode index")
-        raise BasisError("block pattern is not valid")
+    on another device than err).  Span: `container.error_check`, the wait
+    for the flags."""
+    with span("container.error_check"):
+        count("host_syncs")
+        bad = torch.nonzero(err)
+        if bad.numel():
+            count("host_syncs", 2)
+            first = int(bad[0, 0])
+            if int(block_modes(blocks[first : first + 1])[0]) == INVALID_MODE:
+                raise BasisError("invalid mode index")
+            raise BasisError("block pattern is not valid")
 
 
 def _uastc_file(buf: bytes, descs: list[SliceDesc], target: str, mesh: tuple):
@@ -291,24 +298,27 @@ def _uastc_file(buf: bytes, descs: list[SliceDesc], target: str, mesh: tuple):
 def rgba_images(out: torch.Tensor, slices) -> list[Image]:
     """Per-slice RGBA byte images from [N,16] packed RGBA texel words over
     the file's blocks: [by, bx, y, x] texel rows -> raster rows, on the
-    device."""
-    texels = out.view(torch.uint8)  # [N, 64]: 4 rows of 4 texels of 4 bytes
-    images = []
-    for desc, a, b in slices:
-        nbx = desc.num_blocks_x
-        t = texels[a:b].reshape(-1, nbx, 4, 16).permute(0, 2, 1, 3).reshape(-1)
-        images.append(Image(w=desc.orig_width, h=desc.orig_height, stride=4 * nbx * 4, data=t))
-    return images
+    device.  Span: `container.images`."""
+    with span("container.images"):
+        texels = out.view(torch.uint8)  # [N, 64]: 4 rows of 4 texels of 4 bytes
+        images = []
+        for desc, a, b in slices:
+            nbx = desc.num_blocks_x
+            t = texels[a:b].reshape(-1, nbx, 4, 16).permute(0, 2, 1, 3).reshape(-1)
+            images.append(Image(w=desc.orig_width, h=desc.orig_height, stride=4 * nbx * 4, data=t))
+        return images
 
 
 def _block_images(out: torch.Tensor, slices) -> list[Image]:
-    """One image of out's block rows per slice, a row of blocks per stride."""
-    rows = out.view(torch.uint8)
-    size = rows.shape[1]
-    return [
-        Image(w=desc.orig_width, h=desc.orig_height, stride=size * desc.num_blocks_x, data=rows[a:b].reshape(-1))
-        for desc, a, b in slices
-    ]
+    """One image of out's block rows per slice, a row of blocks per stride.
+    Span: `container.images`."""
+    with span("container.images"):
+        rows = out.view(torch.uint8)
+        size = rows.shape[1]
+        return [
+            Image(w=desc.orig_width, h=desc.orig_height, stride=size * desc.num_blocks_x, data=rows[a:b].reshape(-1))
+            for desc, a, b in slices
+        ]
 
 
 # ---------------------------------------------------------------------------
@@ -351,7 +361,8 @@ def etc1s_index_streams(buf, dec: Etc1sDecoder, descs: list[SliceDesc], pairs: b
     the array has 4 rows (endpoint, selector, alpha endpoint, alpha
     selector) over the RGB slices' blocks; otherwise 2 rows over every
     slice's blocks.  Returns (uint16 [rows, N], slices: (desc, first, end)
-    of each image's blocks)."""
+    of each image's blocks).  Span: `frontend.slice` around each slice's
+    decode."""
     step = 2 if pairs else 1
     image_descs = descs[::step]
     ends = np.cumsum([0] + [d.num_blocks_x * d.num_blocks_y for d in image_descs]).tolist()
@@ -364,19 +375,23 @@ def etc1s_index_streams(buf, dec: Etc1sDecoder, descs: list[SliceDesc], pairs: b
                 raise BasisError("Expected slice with alpha")
             if (alpha_desc.num_blocks_x, alpha_desc.num_blocks_y) != (desc.num_blocks_x, desc.num_blocks_y):
                 raise BasisError("RGB slice and Alpha slice have different dimensions")
-            dec.decode_slice(alpha_desc.num_blocks_x, alpha_desc.num_blocks_y, alpha_desc.data(buf),
-                             out=(host[2, a:b], host[3, a:b]))
-        dec.decode_slice(desc.num_blocks_x, desc.num_blocks_y, desc.data(buf), out=(host[0, a:b], host[1, a:b]))
+            with span("frontend.slice"):
+                dec.decode_slice(alpha_desc.num_blocks_x, alpha_desc.num_blocks_y, alpha_desc.data(buf),
+                                 out=(host[2, a:b], host[3, a:b]))
+        with span("frontend.slice"):
+            dec.decode_slice(desc.num_blocks_x, desc.num_blocks_y, desc.data(buf), out=(host[0, a:b], host[1, a:b]))
     return host, slices
 
 
 def _etc1s_indices(buf, header: Header, descs: list[SliceDesc], pairs: bool):
     """(decoder, host index streams, slices) of an ETC1S file
-    (etc1s_index_streams)."""
+    (etc1s_index_streams).  Span: `frontend.decode`, the decoder's build
+    and every slice."""
     if header.has_alpha and header.total_slices % 2 != 0:
         raise BasisError("File has alpha, but slice count is odd")
-    dec = make_etc1s_decoder(header, buf)
-    host, slices = etc1s_index_streams(buf, dec, descs, pairs)
+    with span("frontend.decode"):
+        dec = make_etc1s_decoder(header, buf)
+        host, slices = etc1s_index_streams(buf, dec, descs, pairs)
     return dec, torch.from_numpy(host), slices
 
 
@@ -420,23 +435,25 @@ def read_to_rgba(buf: bytes, device="cuda", mesh=None) -> tuple[Header, list[Ima
     basis.rs:8-90).  Rows of an image are 4 * num_blocks_x texels apart
     (COMPAT.md item 2).  mesh: a device list to shard the device work
     over (module docstring); None runs on `device`."""
-    mesh, header, descs, fmt = _open(buf, device, mesh)
-    if fmt == TexFormat.ETC1S:
-        slices, out = _etc1s_rgba(buf, header, descs, mesh)
-    else:
-        slices, out = _uastc_file(buf, descs, "rgba", mesh)
-    return header, rgba_images(out, slices)
+    with span("container.read"):
+        mesh, header, descs, fmt = _open(buf, device, mesh)
+        if fmt == TexFormat.ETC1S:
+            slices, out = _etc1s_rgba(buf, header, descs, mesh)
+        else:
+            slices, out = _uastc_file(buf, descs, "rgba", mesh)
+        return header, rgba_images(out, slices)
 
 
 def _read_to_blocks(buf: bytes, target: str, device, mesh) -> list[Image]:
     """Shared UASTC path of read_to_{astc,bc7,etc2} (basis.rs:92-260): one
     image of `target` blocks per slice.  An ETC1S file is
     refused (COMPAT.md item 3)."""
-    mesh, header, descs, fmt = _open(buf, device, mesh)
-    if fmt != TexFormat.UASTC4x4:
-        raise BasisError("unsupported texture format")
-    slices, out = _uastc_file(buf, descs, target, mesh)
-    return _block_images(out, slices)
+    with span("container.read"):
+        mesh, header, descs, fmt = _open(buf, device, mesh)
+        if fmt != TexFormat.UASTC4x4:
+            raise BasisError("unsupported texture format")
+        slices, out = _uastc_file(buf, descs, target, mesh)
+        return _block_images(out, slices)
 
 
 def read_to_astc(buf: bytes, device="cuda", mesh=None) -> list[Image]:
@@ -449,12 +466,13 @@ def read_to_bc7(buf: bytes, device="cuda", mesh=None) -> list[Image]:
 
 def read_to_etc1(buf: bytes, device="cuda", mesh=None) -> list[Image]:
     """8-byte ETC1 blocks, one image per slice, of a UASTC or an ETC1S file."""
-    mesh, header, descs, fmt = _open(buf, device, mesh)
-    if fmt == TexFormat.ETC1S:
-        slices, out = _etc1s_etc1(buf, header, descs, mesh)
-    else:
-        slices, out = _uastc_file(buf, descs, "etc1", mesh)
-    return _block_images(out, slices)
+    with span("container.read"):
+        mesh, header, descs, fmt = _open(buf, device, mesh)
+        if fmt == TexFormat.ETC1S:
+            slices, out = _etc1s_etc1(buf, header, descs, mesh)
+        else:
+            slices, out = _uastc_file(buf, descs, "etc1", mesh)
+        return _block_images(out, slices)
 
 
 def read_to_etc2(buf: bytes, device="cuda", mesh=None) -> list[Image]:
@@ -466,15 +484,27 @@ def read_to_etc2(buf: bytes, device="cuda", mesh=None) -> list[Image]:
 def read_to_uastc(buf: bytes, device="cuda") -> list[Image]:
     """Raw UASTC block passthrough (reference: basis.rs:175-202), the
     payload of each slice copied to `device`."""
-    (device,), header, descs, fmt = _open(buf, device)
-    if fmt != TexFormat.UASTC4x4:
-        raise BasisError("unsupported texture format")
-    return [
-        Image(
-            w=desc.orig_width,
-            h=desc.orig_height,
-            stride=UASTC_BLOCK_SIZE * desc.num_blocks_x,
-            data=torch.tensor(_view(buf, _slice_span(buf, desc)), device=device),
-        )
-        for desc in descs
-    ]
+    with span("container.read"):
+        (device,), header, descs, fmt = _open(buf, device)
+        if fmt != TexFormat.UASTC4x4:
+            raise BasisError("unsupported texture format")
+        return [
+            Image(
+                w=desc.orig_width,
+                h=desc.orig_height,
+                stride=UASTC_BLOCK_SIZE * desc.num_blocks_x,
+                data=_payload_copy(_view(buf, _slice_span(buf, desc)), device),
+            )
+            for desc in descs
+        ]
+
+
+def _payload_copy(host: np.ndarray, device) -> torch.Tensor:
+    """A copy of host bytes on `device`; to another device than the host,
+    under the `parallel.h2d` span and counted in `h2d_bytes`, as
+    api.to_device copies."""
+    if device.type == "cpu":
+        return torch.tensor(host)
+    with span("parallel.h2d"):
+        count("h2d_bytes", host.nbytes)
+        return torch.tensor(host, device=device)

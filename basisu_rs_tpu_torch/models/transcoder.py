@@ -5,7 +5,8 @@ work, above the block dispatch (`ops/dispatch.py`) and the ETC1S entries
 (`ops/etc1s.py`).  Each class runs on `device="cuda"` unless constructed
 with another device, and raises without a card, as every entry of the port
 does.  Profiler stages keep the JAX package's names; each is host wall
-time around work that may still run on the card (utils/profiling.py).
+time around work that may still run on the card, and a span of the
+recorder (utils/profiling.py): "device/dispatch" is the launches' enqueue.
 """
 
 from __future__ import annotations
@@ -19,11 +20,14 @@ from ..api import BasisError, _as_blocks, resolve_device
 from ..ops.dispatch import dispatch, partition
 from ..ops.etc1s import run_etc1s_etc1, run_etc1s_rgba
 from ..ops.kernels import TARGETS
-from ..utils.profiling import Profiler
+from ..utils.profiling import Profiler, count
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:
-    """A device result as host numpy, uint32 words kept as uint32."""
+    """A device result as host numpy, uint32 words kept as uint32 (from a
+    card, a copy the host waits for: counted in `host_syncs`)."""
+    if t.device.type != "cpu":
+        count("host_syncs")
     if t.dtype == torch.uint32:
         return t.view(torch.int32).cpu().numpy().view(np.uint32)
     return t.cpu().numpy()
@@ -45,7 +49,7 @@ class TranscodeResult:
         """(out, err) as numpy: uint8 [N, 16] for bc7, astc and etc2, uint8
         [N, 8] for etc1, uint32 [N, 16] packed RGBA texels for rgba; err
         bool [N]."""
-        return to_host(self.out), self.err.cpu().numpy()
+        return to_host(self.out), to_host(self.err)
 
 
 class UastcTranscoder:

@@ -33,8 +33,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..api import resolve_device
+from ..api import resolve_device, to_device
 from ..tables import device_tables
+from ..utils.profiling import count, span
 from . import build
 from .bits import M32, bytes_from_lanes
 from .etc import color_5_to_8, etc1_palette, selector_wire_bits
@@ -171,41 +172,47 @@ class Etc1sKernel:
         selector).  Every index must be below its codebook's length:
         checked here with one host sync unless check_index is False (the
         front-end already guarantees it).  Returns out, uint8
-        [N, OUT_BYTES[kind]], allocated (torch.empty) when not given."""
-        dev = ep_tab.device
-        for name, t in (("ep_tab", ep_tab), ("sel_tab", sel_tab)):
-            if t.dtype != torch.int32 or t.dim() != 1 or t.device != dev or not t.is_contiguous():
-                raise ValueError(f"{name} must be a contiguous int32 [E] tensor on the codebooks' device")
-        if len(idx) != len(self.books):
-            raise ValueError(f"{self.kind} takes {len(self.books)} index streams, got {len(idx)}")
-        n = idx[0].shape[0] if idx[0].dim() == 1 else -1
-        for t in idx:
-            if t.dtype != torch.uint16 or t.shape != (n,) or t.device != dev or not t.is_contiguous():
-                raise ValueError("index streams must be contiguous uint16 [N] tensors of one length "
+        [N, OUT_BYTES[kind]], allocated (torch.empty) when not given.
+        Spans: `etc1s.launch` (the call), `etc1s.index_check` (the check's
+        reduces and its wait)."""
+        with span("etc1s.launch"):
+            dev = ep_tab.device
+            for name, t in (("ep_tab", ep_tab), ("sel_tab", sel_tab)):
+                if t.dtype != torch.int32 or t.dim() != 1 or t.device != dev or not t.is_contiguous():
+                    raise ValueError(f"{name} must be a contiguous int32 [E] tensor on the codebooks' device")
+            if len(idx) != len(self.books):
+                raise ValueError(f"{self.kind} takes {len(self.books)} index streams, got {len(idx)}")
+            n = idx[0].shape[0] if idx[0].dim() == 1 else -1
+            for t in idx:
+                if t.dtype != torch.uint16 or t.shape != (n,) or t.device != dev or not t.is_contiguous():
+                    raise ValueError("index streams must be contiguous uint16 [N] tensors of one length "
+                                     "on the codebooks' device")
+            if out is None:
+                out = torch.empty(n, self.out_bytes, dtype=torch.uint8, device=dev)
+            if (out.dtype != torch.uint8 or out.shape != (n, self.out_bytes) or out.device != dev
+                    or not out.is_contiguous()):
+                raise ValueError(f"out must be a contiguous uint8 [N, {self.out_bytes}] tensor "
                                  "on the codebooks' device")
-        if out is None:
-            out = torch.empty(n, self.out_bytes, dtype=torch.uint8, device=dev)
-        if (out.dtype != torch.uint8 or out.shape != (n, self.out_bytes) or out.device != dev
-                or not out.is_contiguous()):
-            raise ValueError(f"out must be a contiguous uint8 [N, {self.out_bytes}] tensor on the codebooks' device")
-        if n == 0:
+            if n == 0:
+                return out
+            sizes = (ep_tab.shape[0], sel_tab.shape[0])
+            if min(sizes) == 0:
+                raise ValueError(f"{self.kind}: empty codebook (sizes {sizes}) for {n} blocks")
+            if check_index:
+                with span("etc1s.index_check"):
+                    count("host_syncs")
+                    highs = torch.stack([t.to(torch.int32).max() for t in idx]).tolist()
+                for k, (hi, book) in enumerate(zip(highs, self.books)):
+                    if hi >= sizes[book]:
+                        raise ValueError(f"index stream {k} reaches {hi}, past its codebook of {sizes[book]}")
+            if dev.type == "cpu":
+                self.plain_calls += 1
+                PLAIN[self.kind](ep_tab, sel_tab, idx, out)
+            elif dev.type == "cuda":
+                self._launch(ep_tab, sel_tab, idx, n, out)
+            else:
+                raise ValueError(f"no ETC1S {self.kind} kernel for device {dev}")
             return out
-        sizes = (ep_tab.shape[0], sel_tab.shape[0])
-        if min(sizes) == 0:
-            raise ValueError(f"{self.kind}: empty codebook (sizes {sizes}) for {n} blocks")
-        if check_index:
-            highs = torch.stack([t.to(torch.int32).max() for t in idx]).tolist()
-            for k, (hi, book) in enumerate(zip(highs, self.books)):
-                if hi >= sizes[book]:
-                    raise ValueError(f"index stream {k} reaches {hi}, past its codebook of {sizes[book]}")
-        if dev.type == "cpu":
-            self.plain_calls += 1
-            PLAIN[self.kind](ep_tab, sel_tab, idx, out)
-        elif dev.type == "cuda":
-            self._launch(ep_tab, sel_tab, idx, n, out)
-        else:
-            raise ValueError(f"no ETC1S {self.kind} kernel for device {dev}")
-        return out
 
     def _launch(self, ep_tab, sel_tab, idx, n, out) -> None:
         if n >= 2**31:
@@ -222,6 +229,7 @@ class Etc1sKernel:
         if rc != 0:
             raise RuntimeError(f"ETC1S {self.kind} kernel: launch failed, cudaError_t {rc}")
         self.launches += 1
+        count("launches")
 
 
 _KERNELS = {k: Etc1sKernel(k) for k in KINDS}
@@ -252,40 +260,47 @@ def reset_counts() -> None:
 
 def codebook_tensor(words: np.ndarray, device) -> torch.Tensor:
     """uint32 words -> the int32 tensor the wrapper takes, on `device`."""
-    return torch.from_numpy(np.ascontiguousarray(words, np.uint32).view(np.int32)).to(device)
+    return to_device(torch.from_numpy(np.ascontiguousarray(words, np.uint32).view(np.int32)), device)
 
 
 def index_tensor(idx, device) -> torch.Tensor:
     """An index stream (numpy or torch, any integer type with values in
     0..65535) as a contiguous uint16 tensor on `device`."""
     if isinstance(idx, torch.Tensor) and idx.dtype == torch.uint16:
-        return idx.to(device).contiguous()
+        return to_device(idx, device).contiguous()
+    if isinstance(idx, torch.Tensor) and idx.device.type != "cpu":
+        count("host_syncs")
     a = idx.cpu().numpy() if isinstance(idx, torch.Tensor) else np.asarray(idx)
     if a.dtype != np.uint16:
         if a.size and (a.min() < 0 or a.max() > 0xFFFF):
             raise ValueError("ETC1S indices must lie in 0..65535")
         a = a.astype(np.uint16)
-    return torch.from_numpy(np.ascontiguousarray(a).reshape(-1)).to(device)
+    return to_device(torch.from_numpy(np.ascontiguousarray(a).reshape(-1)), device)
 
 
 def run_etc1s_rgba(endpoints, selectors, ep_idx, sel_idx, alpha_pass=None, device="cuda", check_index=True):
     """Decode ETC1S blocks to packed RGBA texels: uint32 [N, 16] (the view
     of uint8 [N, 64] rows) on `device`.  One launch: K6, or K8 when
     alpha_pass = (ep_idx, sel_idx) of the paired alpha slice gives the
-    alpha byte (basis.rs:26-50)."""
-    device = resolve_device(device)
-    ep_tab = codebook_tensor(pack_endpoints(endpoints), device)
-    sel_tab = codebook_tensor(pack_selectors(selectors), device)
-    idx = [index_tensor(i, device) for i in (ep_idx, sel_idx, *(alpha_pass or ()))]
-    kind = "rgba" if alpha_pass is None else "rgba_alpha"
-    return etc1s_kernel(kind)(ep_tab, sel_tab, *idx, check_index=check_index).view(torch.uint32)
+    alpha byte (basis.rs:26-50).  Spans: `etc1s.run`, and `etc1s.pack`
+    (the packers and the codebooks' copies)."""
+    with span("etc1s.run"):
+        device = resolve_device(device)
+        with span("etc1s.pack"):
+            ep_tab = codebook_tensor(pack_endpoints(endpoints), device)
+            sel_tab = codebook_tensor(pack_selectors(selectors), device)
+        idx = [index_tensor(i, device) for i in (ep_idx, sel_idx, *(alpha_pass or ()))]
+        kind = "rgba" if alpha_pass is None else "rgba_alpha"
+        return etc1s_kernel(kind)(ep_tab, sel_tab, *idx, check_index=check_index).view(torch.uint32)
 
 
 def run_etc1s_etc1(endpoints, selectors, ep_idx, sel_idx, device="cuda", check_index=True):
     """ETC1S blocks -> ETC1 blocks: uint32 [N, 2] (the view of uint8 [N, 8]
-    rows) on `device`, one K9 launch."""
-    device = resolve_device(device)
-    ep_tab = codebook_tensor(pack_endpoints(endpoints), device)
-    wire_tab = codebook_tensor(selector_wire_words(selectors), device)
-    idx = [index_tensor(i, device) for i in (ep_idx, sel_idx)]
-    return etc1s_kernel("etc1")(ep_tab, wire_tab, *idx, check_index=check_index).view(torch.uint32)
+    rows) on `device`, one K9 launch.  Spans as run_etc1s_rgba's."""
+    with span("etc1s.run"):
+        device = resolve_device(device)
+        with span("etc1s.pack"):
+            ep_tab = codebook_tensor(pack_endpoints(endpoints), device)
+            wire_tab = codebook_tensor(selector_wire_words(selectors), device)
+        idx = [index_tensor(i, device) for i in (ep_idx, sel_idx)]
+        return etc1s_kernel("etc1")(ep_tab, wire_tab, *idx, check_index=check_index).view(torch.uint32)

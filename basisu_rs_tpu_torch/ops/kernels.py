@@ -29,6 +29,7 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import count
 from . import astc, bc7, build, etc, rgba
 
 N_MODES = 19
@@ -106,6 +107,7 @@ class ModeKernel:
         if n == 0:
             return out, err
         if index is not None and check_index:
+            count("host_syncs", 2)
             lo, hi = (int(v) for v in torch.aminmax(index))
             if lo < 0 or hi >= n_rows:
                 raise ValueError(f"index values must lie in [0, {n_rows}), got [{lo}, {hi}]")
@@ -138,6 +140,7 @@ class ModeKernel:
             raise RuntimeError(f"{self.target} kernel of mode {self.mode}: {'chained ' if chain else ''}launch failed, "
                                f"cudaError_t {rc}")
         self.launches += 1
+        count("launches")
 
 
 _KERNELS = {t: tuple(ModeKernel(t, m) for m in range(N_MODES)) for t in TARGETS}

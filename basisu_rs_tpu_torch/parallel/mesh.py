@@ -13,7 +13,10 @@ host.
   - `sharded_transcode` (production): each shard runs the port's own mode
     partition and one launch per present mode (`ops/dispatch.py`) on its
     device.  Every shard's partition is enqueued before any count is read
-    back, so the devices do not wait on each other's one host sync.
+    back, so the devices do not wait on each other's count reads; but on a
+    card each partition's bincount reads the shard's max back to the host
+    (ops/dispatch.py), so the host waits for each shard's modes and sort
+    before it enqueues the next shard's.
   - `sharded_transcode_step`: the contract of the JAX step (padded shards
     in, outputs and a global error count out), computed by the same
     per-shard partition and dispatch; the JAX package's all-modes graph
@@ -40,7 +43,7 @@ import warnings
 
 import torch
 
-from ..api import block_tensor, resolve_device
+from ..api import block_tensor, resolve_device, to_device
 from ..ops.dispatch import check_target, dispatch, mode_groups
 from ..ops.etc1s import (
     KINDS,
@@ -53,6 +56,7 @@ from ..ops.etc1s import (
     selector_wire_words,
 )
 from ..ops.kernels import OUT_BYTES, mode_kernel
+from ..utils.profiling import count, count_elapsed_ns, cuda_mark, span
 
 
 def make_mesh(n_devices: int | None = None, *, allow_cpu_fallback: bool = False) -> tuple:
@@ -118,7 +122,7 @@ def _bounds(n: int, parts: int) -> list:
 def _shards(t: torch.Tensor, devices) -> list:
     """t's contiguous row shards, each copied from where t lies to its
     device (a view where that is t's own device)."""
-    return [t[a:b].to(d) for d, (a, b) in zip(devices, _bounds(t.shape[0], len(devices)))]
+    return [to_device(t[a:b], d) for d, (a, b) in zip(devices, _bounds(t.shape[0], len(devices)))]
 
 
 def _on(device):
@@ -160,14 +164,22 @@ def _transcode_shards(shards: list, target: str, out_device) -> tuple:
     n = sum(s.shape[0] for s in shards)
     out = torch.empty(n, OUT_BYTES[target], dtype=torch.uint8, device=out_device)
     err = torch.empty(n, dtype=torch.bool, device=out_device)
-    groups = []
-    for s in shards:
-        with _on(s.device):
-            groups.append(mode_groups(s))
+    groups, marks = [], []
+    with span("dispatch.groups"):
+        for s in shards:
+            with _on(s.device):
+                start = cuda_mark(s.device)
+                groups.append(mode_groups(s))
+                marks.append((start, cuda_mark(s.device)))
     # every partition is enqueued before the first count is read, and every
     # count is read before the first launch, so no device waits on another's
-    # host sync, nor a shard's sync on the launches of a shard before it
-    counts = [c.tolist() for _, c in groups]
+    # count read, nor a shard's read on the launches of a shard before it
+    # (each bincount's own sync still waits for its shard's modes and sort)
+    with span("dispatch.counts"):
+        count("host_syncs", len(groups))
+        counts = [c.tolist() for _, c in groups]
+    for start, end in marks:
+        count_elapsed_ns("partition_device_ns", start, end)
     a = 0
     for s, (order, _), c in zip(shards, groups, counts):
         b = a + s.shape[0]
@@ -185,9 +197,10 @@ def sharded_transcode(blocks, target: str, mesh) -> tuple:
     shapes of ops.dispatch.transcode_blocks.  The block axis splits
     contiguously over the mesh; each shard is copied from where the blocks
     lie straight to its device and runs the port's partition + dispatch
-    there."""
-    devices = mesh_devices(mesh)
-    return _transcode_shards(_shards(block_tensor(blocks), devices), target, devices[0])
+    there.  Span: `parallel.transcode`."""
+    with span("parallel.transcode"):
+        devices = mesh_devices(mesh)
+        return _transcode_shards(_shards(block_tensor(blocks), devices), target, devices[0])
 
 
 def sharded_transcode_step(target: str, mesh):
@@ -200,8 +213,10 @@ def sharded_transcode_step(target: str, mesh):
     def step(shards):
         if len(shards) != len(devices):
             raise ValueError(f"expected {len(devices)} shards, got {len(shards)}")
-        out, err = _transcode_shards(list(shards), target, devices[0])
-        return out, int(err.sum())
+        with span("parallel.transcode"):
+            out, err = _transcode_shards(list(shards), target, devices[0])
+            count("host_syncs")
+            return out, int(err.sum())
 
     return step
 
@@ -217,13 +232,15 @@ def sharded_mode_step(target: str, mode_id: int, mesh):
     kernel = mode_kernel(target, mode_id)
 
     def step(blocks):
-        t = block_tensor(blocks)
-        n = t.shape[0]
-        out = torch.empty(n, OUT_BYTES[target], dtype=torch.uint8, device=devices[0])
-        err = torch.empty(n, dtype=torch.bool, device=devices[0])
-        for d, shard, (a, b) in zip(devices, _shards(t, devices), _bounds(n, len(devices))):
-            _run_shard(d, (out[a:b], err[a:b]), lambda o, e, shard=shard: kernel(shard, None, o, e))
-        return out, err, int(err.sum())
+        with span("parallel.mode"):
+            t = block_tensor(blocks)
+            n = t.shape[0]
+            out = torch.empty(n, OUT_BYTES[target], dtype=torch.uint8, device=devices[0])
+            err = torch.empty(n, dtype=torch.bool, device=devices[0])
+            for d, shard, (a, b) in zip(devices, _shards(t, devices), _bounds(n, len(devices))):
+                _run_shard(d, (out[a:b], err[a:b]), lambda o, e, shard=shard: kernel(shard, None, o, e))
+            count("host_syncs")
+            return out, err, int(err.sum())
 
     return step
 
@@ -241,22 +258,27 @@ def sharded_etc1s_transcode(kind: str, endpoints, selectors, ep_idx, sel_idx, me
     checked against its codebook unless check_index is False (a caller that
     already checked them, as the file path's front-end does).  Returns the
     uint32 view of the rows on mesh[0] in block order: [N, 16] for the
-    texel kinds, [N, 2] for "etc1", the JAX function's shapes."""
+    texel kinds, [N, 2] for "etc1", the JAX function's shapes.  Spans:
+    `parallel.etc1s`, and `etc1s.pack` (the packers and the codebooks'
+    copies)."""
     if kind not in KINDS:
         raise ValueError(f"unknown ETC1S kind {kind!r}; one of {', '.join(KINDS)}")
-    devices = mesh_devices(mesh)
-    # each stream stays where it lies (numpy goes to the host), as uint16
-    streams = [index_tensor(i, i.device if isinstance(i, torch.Tensor) else "cpu")
-               for i in (ep_idx, sel_idx, *extra_idx)]
-    n = streams[0].shape[0]
-    if any(s.shape[0] != n for s in streams):
-        raise ValueError(f"index streams of different lengths: {[s.shape[0] for s in streams]}")
-    words = (pack_endpoints(endpoints), selector_wire_words(selectors) if kind == "etc1" else pack_selectors(selectors))
-    books = {d: tuple(codebook_tensor(w, d) for w in words) for d in set(devices)}
-    kernel = etc1s_kernel(kind)
-    out = torch.empty(n, ETC1S_OUT_BYTES[kind], dtype=torch.uint8, device=devices[0])
-    for d, (a, b) in zip(devices, _bounds(n, len(devices))):
-        shard = [s[a:b].to(d) for s in streams]
-        _run_shard(d, (out[a:b],),
-                   lambda o, d=d, shard=shard: kernel(*books[d], *shard, out=o, check_index=check_index))
-    return out.view(torch.uint32)
+    with span("parallel.etc1s"):
+        devices = mesh_devices(mesh)
+        # each stream stays where it lies (numpy goes to the host), as uint16
+        streams = [index_tensor(i, i.device if isinstance(i, torch.Tensor) else "cpu")
+                   for i in (ep_idx, sel_idx, *extra_idx)]
+        n = streams[0].shape[0]
+        if any(s.shape[0] != n for s in streams):
+            raise ValueError(f"index streams of different lengths: {[s.shape[0] for s in streams]}")
+        with span("etc1s.pack"):
+            words = (pack_endpoints(endpoints),
+                     selector_wire_words(selectors) if kind == "etc1" else pack_selectors(selectors))
+            books = {d: tuple(codebook_tensor(w, d) for w in words) for d in set(devices)}
+        kernel = etc1s_kernel(kind)
+        out = torch.empty(n, ETC1S_OUT_BYTES[kind], dtype=torch.uint8, device=devices[0])
+        for d, (a, b) in zip(devices, _bounds(n, len(devices))):
+            shard = [to_device(s[a:b], d) for s in streams]
+            _run_shard(d, (out[a:b],),
+                       lambda o, d=d, shard=shard: kernel(*books[d], *shard, out=o, check_index=check_index))
+        return out.view(torch.uint32)

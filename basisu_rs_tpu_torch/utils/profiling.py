@@ -1,28 +1,217 @@
-"""Lightweight profiling: per-stage wall times and texel-rate counters.
+"""Lightweight profiling: the program's spans and counters, per-stage wall
+times and texel-rate counters, and device timers.
 
-Port of `basisu_rs_tpu/utils/profiling.py`.  A stage is host wall time
-around work that may still be running on the card when the stage closes:
-a stage that only enqueues launches measures the enqueue, and the card's
-time lands in whichever later stage waits for it (a copy to the host, a
-host read of a count).  Device time comes from CUDA events on a preloaded
-stream (`event_times_ms`, used by `chip_smoke.py` and `tools/ablate_bc7.py`;
-`event_sequence_ms`, one event between the calls of a sequence, used by
-`bench.py`) or from `trace`, which records a `torch.profiler` trace of the
-host and the card.
+Port of `basisu_rs_tpu/utils/profiling.py`, plus the recorder.
+
+The recorder: `span(name)` around the work of each layer, `count(name, n)`
+at the sites that do countable work (kernel launches, host syncs, bytes
+copied from the host).  It is off until `enable()`; off, `span` returns
+one shared no-op context manager and `count` returns at once.  On, each
+span records its name, start and end (`time.perf_counter_ns`), the span
+that opened it and the request it belongs to: a span opened on a thread
+with no open span is a root and starts a new request, so every entry point
+of the port called directly is one request.  Each span is also a profiler
+range (a RecordFunction, as `torch.profiler.record_function` opens), so
+that a profiler trace (`trace`) holds the program's spans on the card's
+clock, one constant offset from the recorder's.  Counters add up per request.  Records stay in memory
+until `records()` reads them and `clear()` drops them.
+
+A stage of `Profiler` is host wall time around work that may still be
+running on the card when the stage closes: a stage that only enqueues
+launches measures the enqueue, and the card's time lands in whichever
+later stage waits for it (a copy to the host, a host read of a count).
+Each stage is also a span of its name.  Device time comes from CUDA events
+on a preloaded stream (`event_times_ms`, used by `chip_smoke.py` and
+`tools/ablate_bc7.py`; `event_sequence_ms`, one event between the calls of
+a sequence, used by `bench.py`), from a pair of events the recorder reads
+after a sync the program makes anyway (`cuda_mark`, `count_elapsed_ns`),
+or from `trace`, which records a `torch.profiler` trace of the host and
+the card.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import threading
 import time
 from collections import defaultdict
 from dataclasses import dataclass, field
 from pathlib import Path
+from typing import NamedTuple
 
-_LOCK = threading.Lock()  # stages may close on pipeline worker threads
+import torch
+
+_LOCK = threading.Lock()  # stages may close, and counters add, on pipeline worker threads
 PRELOAD_CYCLES = 20_000_000  # ~10 ms of sleep at 2 GHz: longer than any enqueue timed with it
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet: the bytes bound of a launch
+
+
+# ---------------------------------------------------------------------------
+# the recorder
+# ---------------------------------------------------------------------------
+
+_ON = False  # the one check of the off path
+_SPANS: list = []  # SpanRecord, in the order the spans closed
+_COUNTS: dict = {}  # (request, counter name) -> total
+_SPAN_IDS = itertools.count(1)
+_REQUEST_IDS = itertools.count(1)
+_LOCAL = threading.local()  # .stack: the thread's open spans, innermost last
+# A span's profiler range.  torch.profiler.record_function costs ~10 us an
+# enter and exit on the host, profiler or not (two dispatched ops), which
+# would land in the very spans it marks; the C++ range that torch's own
+# compiled code uses costs ~0.5 us and keeps its times within a few us of
+# the recorder's.  It is private to torch, hence the public fallback.
+_RANGE = getattr(torch._C._profiler, "_RecordFunctionFast", None) or torch.profiler.record_function
+
+
+class SpanRecord(NamedTuple):
+    name: str
+    start_ns: int  # time.perf_counter_ns()
+    end_ns: int
+    id: int
+    parent: int | None  # the id of the span that opened it; None for a root
+    request: int
+    thread: int  # threading.get_ident() of the thread it ran on
+
+
+@dataclass
+class Records:
+    """What the recorder holds: every closed span, and each counter's total
+    by (request, name); request None counts work done outside any span."""
+
+    spans: list
+    counts: dict
+
+    def seconds(self, *names: str) -> float:
+        """Host seconds in the spans of these names, summed."""
+        return sum(s.end_ns - s.start_ns for s in self.spans if s.name in names) * 1e-9
+
+    def total(self, name: str) -> int:
+        """A counter's total over every request."""
+        return sum(n for (_request, counter), n in self.counts.items() if counter == name)
+
+
+class _Off:
+    """The span of the off path: one shared instance that does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("name", "id", "parent", "request", "range", "start_ns")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = getattr(_LOCAL, "stack", None)
+        if stack is None:
+            stack = _LOCAL.stack = []
+        # the range first: if it raises, the span never opened
+        self.range = _RANGE(self.name)
+        self.range.__enter__()
+        if stack:
+            self.parent, self.request = stack[-1].id, stack[-1].request
+        else:
+            self.parent, self.request = None, next(_REQUEST_IDS)
+        self.id = next(_SPAN_IDS)
+        stack.append(self)
+        self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end_ns = time.perf_counter_ns()
+        self.range.__exit__(*exc)
+        _LOCAL.stack.pop()
+        _SPANS.append(SpanRecord(self.name, self.start_ns, end_ns, self.id, self.parent, self.request,
+                                 threading.get_ident()))
+        return False
+
+
+def span(name: str):
+    """A context manager that records the work under it as span `name`
+    (module docstring); with the recorder off, a shared one that does
+    nothing."""
+    if not _ON:
+        return _OFF
+    return _Span(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to counter `name` of the request open on this thread."""
+    if not _ON:
+        return
+    stack = getattr(_LOCAL, "stack", None)
+    key = (stack[-1].request if stack else None, name)
+    with _LOCK:
+        _COUNTS[key] = _COUNTS.get(key, 0) + n
+
+
+_FREE_MARKS: dict = {}  # torch.device -> timing events read and free to record again
+
+
+def cuda_mark(device):
+    """With the recorder on and `device` a card: a mark, a timing CUDA event
+    recorded now on the device's current stream.  Otherwise None.  Events
+    are reused once count_elapsed_ns has read them: one made anew every
+    request cost the card's UASTC request ~0.06-0.2 ms on an H100."""
+    if not _ON or device.type != "cuda":
+        return None
+    with _LOCK:
+        free = _FREE_MARKS.get(device)
+        event = free.pop() if free else None
+    if event is None:
+        event = torch.cuda.Event(enable_timing=True)
+    event.record(torch.cuda.current_stream(device))
+    return device, event
+
+
+def count_elapsed_ns(name: str, start, end) -> None:
+    """Add the card's nanoseconds from cuda_mark `start` to `end` to counter
+    `name` (nothing if either is None).  Both events must have completed:
+    call it after a host sync that waits for the end event, so that the
+    read adds no sync of its own."""
+    if start is None or end is None:
+        return
+    (device, first), (_device, last) = start, end
+    count(name, round(first.elapsed_time(last) * 1e6))
+    with _LOCK:
+        _FREE_MARKS.setdefault(device, []).extend((first, last))
+
+
+def enable() -> None:
+    """Turn the recorder on."""
+    global _ON
+    _ON = True
+
+
+def disable() -> None:
+    """Turn the recorder off; what it holds stays until clear()."""
+    global _ON
+    _ON = False
+
+
+def records() -> Records:
+    """A copy of every span closed and every counter added since clear()."""
+    with _LOCK:
+        return Records(list(_SPANS), dict(_COUNTS))
+
+
+def clear() -> None:
+    """Drop every record."""
+    with _LOCK:
+        _SPANS.clear()
+        _COUNTS.clear()
 
 
 @dataclass
@@ -44,9 +233,14 @@ class Profiler:
 
     @contextlib.contextmanager
     def stage(self, name: str, texels: int = 0):
+        """Time the work under it as stage `name`, which is also a span of
+        that name (the JAX package's stage names).  Host wall time: a stage
+        that only enqueues work on the card, as "device/dispatch" does,
+        measures the enqueue, not the card's time."""
         t0 = time.perf_counter()
         try:
-            yield
+            with span(name):
+                yield
         finally:
             dt = time.perf_counter() - t0
             with _LOCK:
@@ -67,12 +261,12 @@ class Profiler:
 def trace(log_dir: str | None):
     """Optional torch.profiler trace of the host and the card (CPU and CUDA
     activities), written as a Chrome trace `trace.json` into log_dir; with
-    no log_dir it does nothing."""
+    no log_dir it does nothing.  With the recorder on (`enable()`), the
+    program's spans are ranges of the trace, beside the card's kernels and
+    on their clock."""
     if not log_dir:
         yield
         return
-    import torch
-
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -91,8 +285,6 @@ def event_times_ms(fn, reps: int, launches: int = 1, preload: bool = False) -> l
     enqueue fn's launches, which is what a caller sees.  With preload=True a
     sleep kernel holds the stream while fn enqueues, so the events span only
     the card's own time for fn's kernels."""
-    import torch
-
     times = []
     for _ in range(reps):
         if preload:
@@ -119,8 +311,6 @@ def event_sequence_ms(fns, reps: int, preload: bool = False) -> list:
     stream with a sleep kernel while the host enqueues a run, as in
     event_times_ms; only calls that do not wait on the host may be
     preloaded."""
-    import torch
-
     times = [[] for _ in fns]
     for rep in range(reps):
         if preload:

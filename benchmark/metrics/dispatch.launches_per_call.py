@@ -1,0 +1,11 @@
+"""dispatch.launches_per_call: kernel launches a request (the program's
+counter `launches`, one a launch of a CUDA kernel; a plain-version call on
+the CPU is none), over every request of the window."""
+
+from benchmark.metrics import _recorder
+
+_recorder.start()
+
+
+def read(record):
+    return _recorder.per_call(record, "launches")
