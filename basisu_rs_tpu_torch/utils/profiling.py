@@ -147,6 +147,12 @@ def span(name: str):
     return _Span(name)
 
 
+def enabled() -> bool:
+    """Whether the recorder is on: for a site whose count costs work of its
+    own, which it then does only when on."""
+    return _ON
+
+
 def count(name: str, n: int = 1) -> None:
     """Add n to counter `name` of the request open on this thread."""
     if not _ON:

@@ -3,8 +3,11 @@ against the JAX package's container: synthetic multi-slice UASTC and ETC1S
 files read through both packages' read_to_{rgba,astc,bc7,etc1,etc2,uastc}
 on the CPU, bit-exact (tolerance 0) on w, h, stride and data, ETC1S files
 also against the reference-transcribed oracle (tests/oracle_etc1s.py), the
-same error messages, the writers' bytes, and the host C++ CRC against its
-Python version."""
+same error messages, the writers' bytes, and the host C++ CRC (the path it
+picks, its table path and its fold path) against its Python version and
+binascii, with the recorder's counts of the bytes each path read."""
+
+import binascii
 
 import numpy as np
 import pytest
@@ -17,8 +20,10 @@ import basisu_rs_tpu_torch.container as tc
 import basisu_rs_tpu_torch.container.writer as tw
 from basisu_rs_tpu.api import BasisError as JBasisError
 from basisu_rs_tpu.tables import MODES
+from basisu_rs_tpu_torch.container import crc as crc_mod
 from basisu_rs_tpu_torch.container.crc import crc16, crc16_plain
 from basisu_rs_tpu_torch.ops import etc1s, kernels
+from basisu_rs_tpu_torch.utils import profiling
 from oracle_etc1s import oracle_make_decoder, oracle_read_to_etc1, oracle_read_to_rgba
 from torch_cases import etc1s_codebooks
 
@@ -91,14 +96,85 @@ def test_writer_matches_jax_byte_for_byte(golden):
     assert tw.write_uastc_basis(slices) == jw.write_uastc_basis(slices)
 
 
-@pytest.mark.parametrize("size", [0, 1, 2, 77, 1000, 65537])
-def test_crc_native_matches_plain(size):
+CRC_SIZES = [0, 1, 2, 15, 16, 17, 63, 64, 65, 77, 127, 128, 129, 255, 1000, 4103, 65537, (1 << 20) + 13]
+# each size through crc16, the path it picks (under the size alone as id, as
+# before the two paths), then the table path alone and the fold path alone
+CRC_CASES = [pytest.param(size, path, id=str(size) if path == "auto" else f"{size}-{path}")
+             for path in ("auto", "table", "fold") for size in CRC_SIZES]
+
+
+def _crc_oracle(data, init):
+    """crc16_plain, or for long buffers binascii's CRC-16/XMODEM: GENIBUS
+    is the same register with its input and output inverted."""
+    if len(data) <= 4103:
+        return crc16_plain(data, init)
+    return 0xFFFF ^ binascii.crc_hqx(data, 0xFFFF ^ init)
+
+
+def test_crc_oracles_agree():
+    data = np.random.default_rng(5).integers(0, 256, 4103, dtype=np.uint8).tobytes()
+    for init in (0, 0x1234, 0xFFFF):
+        assert crc16_plain(data, init) == 0xFFFF ^ binascii.crc_hqx(data, 0xFFFF ^ init)
+
+
+@pytest.mark.parametrize("size, path", CRC_CASES)
+def test_crc_native_matches_plain(size, path):
+    if path == "fold" and not crc_mod.has_fold():
+        pytest.skip("this CPU has no PCLMULQDQ: the fold path does not run here")
     rng = np.random.default_rng(size)
-    data = rng.integers(0, 256, size, dtype=np.uint8).tobytes()
-    init = int(rng.integers(0, 1 << 16))
-    assert crc16(data) == crc16_plain(data)
-    assert crc16(data, init) == crc16_plain(data, init)
-    assert crc16(memoryview(data)[size // 3 :]) == crc16_plain(data[size // 3 :])
+    buf = rng.integers(0, 256, size + 16, dtype=np.uint8).tobytes()
+    # start offsets 0-15 (unaligned loads), zero and random initial values
+    for offset in range(16):
+        data = memoryview(buf)[offset : offset + size]
+        for init in (0, int(rng.integers(1, 1 << 16))):
+            want = _crc_oracle(data, init)
+            if path == "auto":
+                assert crc16(data, init) == want
+            elif path == "table":
+                assert crc_mod.crc16_table(data, init) == want
+            else:
+                got, folded = crc_mod.crc16_fold(data, init)
+                assert got == want and folded == (size // 16 * 16 if size >= 16 else 0)
+    data = buf[:size]
+    assert crc16(data) == _crc_oracle(data, 0)
+    assert crc16(memoryview(data)[size // 3 :]) == _crc_oracle(data[size // 3 :], 0)
+    assert crc16(np.frombuffer(data, np.uint8)) == _crc_oracle(data, 0)
+
+
+def _crc_file(golden, fmt):
+    if fmt == "uastc":
+        return tw.write_uastc_basis(_slices(golden, seed=8))
+    return _etc1s_file(False, seed=8)[3]
+
+
+@pytest.mark.parametrize("fmt", ["uastc", "etc1s"])
+@pytest.mark.parametrize("where", ["header", "first", "middle", "last"])
+def test_crc_catches_a_flipped_bit(golden, fmt, where):
+    buf = bytearray(_crc_file(golden, fmt))
+    assert len(buf) - tc.Header.FILE_SIZE >= 128  # the data CRC takes the fold where the CPU has it
+    at = {"header": 40, "first": tc.Header.FILE_SIZE, "middle": (tc.Header.FILE_SIZE + len(buf)) // 2,
+          "last": len(buf) - 1}[where]
+    buf[at] ^= 0x10
+    message = "^Header CRC16 failed$" if where == "header" else "^Data CRC16 failed$"
+    with pytest.raises(tb.BasisError, match=message):
+        (tb.read_to_bc7 if fmt == "uastc" else tb.read_to_rgba)(bytes(buf), device=CPU)
+
+
+@pytest.mark.parametrize("fmt", ["uastc", "etc1s"])
+def test_crc_counters_count_one_read(golden, fmt):
+    buf = _crc_file(golden, fmt)
+    data = len(buf) - tc.Header.FILE_SIZE
+    profiling.clear()
+    profiling.enable()
+    try:
+        (tb.read_to_bc7 if fmt == "uastc" else tb.read_to_rgba)(buf, device=CPU)
+        rec = profiling.records()
+    finally:
+        profiling.disable()
+        profiling.clear()
+    # the header's 69 bytes by the table, the data by the fold but its last data % 16 bytes
+    assert rec.total("crc_bytes") == tc.Header.FILE_SIZE - 8 + data
+    assert rec.total("crc_fold_bytes") == (data // 16 * 16 if crc_mod.has_fold() else 0)
 
 
 def _corrupt(golden, case):

@@ -6,7 +6,8 @@ Every entry point called directly is one root span and one request; child
 spans name their parent and lie inside it; a file read gives its
 container, front-end and parallel spans in order; the pipeline's parse
 spans sit on its worker threads; the counters count host syncs, launches
-(none on the CPU: plain calls only) and bytes copied from the host.  Off,
+(none on the CPU: plain calls only), bytes copied from the host and the
+bytes the CRC read, by either of its paths.  Off,
 the recorder records nothing, opens no profiler range and costs under a
 microsecond a span.  On, its spans match the profiler's ranges of the same
 names, one offset apart."""
@@ -23,6 +24,7 @@ import torch
 import basisu_rs_tpu_torch as tb
 import basisu_rs_tpu_torch.container.writer as tw
 from basisu_rs_tpu_torch.api import to_device
+from basisu_rs_tpu_torch.container import crc
 from basisu_rs_tpu_torch.models import BasisCorpusPipeline, UastcTranscoder
 from basisu_rs_tpu_torch.ops import etc1s, kernels
 from basisu_rs_tpu_torch.parallel.mesh import (
@@ -73,7 +75,8 @@ def _by_start(rec):
     return sorted(rec.spans, key=lambda s: (s.start_ns, s.id))
 
 
-# every entry point: (root span name, the call)
+# every entry point: (root span name, the call of golden and the files:
+# _etc1s()'s four, then _uastc_file's)
 ENTRIES = {
     "transcode_uastc_blocks": ("api.transcode", lambda g, f: tb.transcode_uastc_blocks(g["bc7_in"], "bc7", CPU)),
     "transcode_uastc_block_to_bc7": ("api.block", lambda g, f: tb.transcode_uastc_block_to_bc7(g["bc7_in"][0], CPU)),
@@ -81,13 +84,13 @@ ENTRIES = {
                                                                        device=CPU)),
     "run_etc1s_etc1": ("etc1s.run", lambda g, f: etc1s.run_etc1s_etc1(*f[:2], f[2][0]["ep_idx"], f[2][0]["sel_idx"],
                                                                        device=CPU)),
-    "read_to_bc7": ("container.read", lambda g, f: tb.read_to_bc7(_uastc_file(g), device=CPU)),
-    "read_to_rgba_uastc": ("container.read", lambda g, f: tb.read_to_rgba(_uastc_file(g), device=CPU)),
+    "read_to_bc7": ("container.read", lambda g, f: tb.read_to_bc7(f[4], device=CPU)),
+    "read_to_rgba_uastc": ("container.read", lambda g, f: tb.read_to_rgba(f[4], device=CPU)),
     "read_to_rgba_etc1s": ("container.read", lambda g, f: tb.read_to_rgba(f[3], device=CPU)),
     "read_to_etc1_etc1s": ("container.read", lambda g, f: tb.read_to_etc1(f[3], device=CPU)),
-    "read_to_astc": ("container.read", lambda g, f: tb.read_to_astc(_uastc_file(g), mesh=MESH)),
-    "read_to_etc2": ("container.read", lambda g, f: tb.read_to_etc2(_uastc_file(g), device=CPU)),
-    "read_to_uastc": ("container.read", lambda g, f: tb.read_to_uastc(_uastc_file(g), device=CPU)),
+    "read_to_astc": ("container.read", lambda g, f: tb.read_to_astc(f[4], mesh=MESH)),
+    "read_to_etc2": ("container.read", lambda g, f: tb.read_to_etc2(f[4], device=CPU)),
+    "read_to_uastc": ("container.read", lambda g, f: tb.read_to_uastc(f[4], device=CPU)),
     "sharded_transcode": ("parallel.transcode", lambda g, f: sharded_transcode(g["bc7_in"][:99], "bc7", MESH)),
     "sharded_transcode_step": ("parallel.transcode", lambda g, f: sharded_transcode_step("etc1", MESH)(
         shard_blocks(g["bc7_in"][:99], MESH))),
@@ -101,7 +104,7 @@ ENTRIES = {
 @pytest.mark.parametrize("entry", sorted(ENTRIES))
 def test_every_entry_is_one_root_span_and_one_request(recorder, golden, entry):
     root_name, call = ENTRIES[entry]
-    files = _etc1s()
+    files = (*_etc1s(), _uastc_file(golden))
     recorder.clear()  # the files' writers ran on the host, outside the program
     call(golden, files)
     rec = recorder.records()
@@ -199,10 +202,15 @@ def test_stages_are_spans_of_their_names(recorder, golden):
 
 def test_counters_on_a_cpu_run(recorder, golden):
     kernels.reset_counts()
-    tb.read_to_bc7(_uastc_file(golden), device=CPU)
+    buf = _uastc_file(golden)
+    recorder.clear()  # the writer's CRC ran outside the program
+    tb.read_to_bc7(buf, device=CPU)
     rec = recorder.records()
-    # bincount's max, the partition's counts and the error check's nonzero; no launch on the CPU
-    assert rec.counts == {(rec.spans[0].request, "host_syncs"): 3}
+    # bincount's max, the partition's counts and the error check's nonzero; no launch on the CPU;
+    # the CRC's bytes, the header's by the table and the data's by the fold where the CPU has it
+    request, data = rec.spans[0].request, len(buf) - tb.Header.FILE_SIZE
+    assert rec.counts == {(request, "host_syncs"): 3, (request, "crc_bytes"): 69 + data,
+                          (request, "crc_fold_bytes"): data // 16 * 16 if crc.has_fold() else 0}
     assert rec.total("launches") == 0 and rec.total("h2d_bytes") == 0
     assert sum(map(sum, kernels.plain_call_counts().values())) > 0
     assert sum(map(sum, kernels.launch_counts().values())) == 0
@@ -215,7 +223,7 @@ def test_counters_on_a_cpu_run(recorder, golden):
         assert recorder.records().total("host_syncs") == syncs
     recorder.clear()
     tb.read_to_rgba(buf, device=CPU)  # the front-end checked the indices: no sync
-    assert recorder.records().counts == {}
+    assert {name for _request, name in recorder.records().counts} == {"crc_bytes", "crc_fold_bytes"}
     recorder.clear()
     kernels.mode_kernel("bc7", 1)(torch.from_numpy(golden["bc7_in"][:8]), torch.arange(4))
     assert recorder.records().counts == {(None, "host_syncs"): 2}  # the index check's min and max, outside a span
@@ -342,7 +350,8 @@ def _hand_records():
         spans.append(SpanRecord(name, t, t + ms * MS, len(spans) + 1, None, len(spans) + 1, 1))
         t += ms * MS
     counts = {(1, "launches"): 19, (2, "launches"): 19, (1, "host_syncs"): 2, (2, "host_syncs"): 1,
-              (1, "partition_device_ns"): 300_000, (2, "partition_device_ns"): 100_000, (1, "h2d_bytes"): 8_000_000}
+              (1, "partition_device_ns"): 300_000, (2, "partition_device_ns"): 100_000, (1, "h2d_bytes"): 8_000_000,
+              (1, "crc_bytes"): 1000, (2, "crc_bytes"): 600, (1, "crc_fold_bytes"): 928, (2, "crc_fold_bytes"): 512}
     return Records(spans, counts)
 
 
@@ -357,6 +366,7 @@ EXPECTED = {  # over 4 calls and 1000 blocks
     "frontend.decode_ns_per_block": 2 * 7e6 / 1000,
     "parallel.h2d_gb_s": 8e6 / 16e-3 / 1e9,
     "host.syncs_per_read": 3 / 4,
+    "container.crc_fold_pct": 100 * 1440 / 1600,
 }
 
 
@@ -413,14 +423,18 @@ def test_metric_reads_nothing_without_records(metrics, monkeypatch, name):
 def test_metrics_read_a_cpu_run(metrics, golden):
     from benchmark import core
 
+    buf = _uastc_file(golden)
     profiling.clear()
     for _ in range(3):
-        tb.read_to_bc7(_uastc_file(golden), device=CPU)
+        tb.read_to_bc7(buf, device=CPU)
     record = core.Record(config={}, traffic={}, calls=3, blocks=3 * 48)
     assert metrics["host.syncs_per_read"].read(record) == 3
     assert metrics["dispatch.launches_per_call"].read(record) == 0
     assert metrics["container.validate_ms"].read(record) > 0
     assert metrics["dispatch.enqueue_ms"].read(record) > 0
+    data = len(buf) - tb.Header.FILE_SIZE
+    assert metrics["container.crc_fold_pct"].read(record) == (
+        pytest.approx(100 * (data // 16 * 16) / (69 + data)) if crc.has_fold() else 0)
     for name in ("parallel.h2d_gb_s", "dispatch.partition_device_ms", "etc1s.pack_ms", "frontend.decode_ns_per_block"):
         assert metrics[name].read(record) is None, name  # no copy to a card, no card, no ETC1S
 
