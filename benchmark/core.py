@@ -4,7 +4,21 @@ window, the sampled outputs, the spans, and the result line.
 A cell is one entry of BENCHMARK.json's `workloads`.  Its configuration
 is `configs/<config>.json`, its traffic mix `traffic/<traffic>.json`, the
 mix's `driver` names `drivers/<driver>.py`, and each metric the cell
-reports is read by `metrics/<metric>.py`.  A driver exposes:
+reports is read by `metrics/<metric>.py`.
+
+A cell with a new traffic mix joins by new files and entries alone; no
+file that is there needs an edit.  It brings:
+- `traffic/<traffic>.json`: its `name`, its `driver`, the parameters the
+  driver reads, and `cpu_test`, the values the benchmark's tests run the
+  cell at on the CPU, each in place of a parameter of the file's own;
+- where no driver reads the mix yet, `drivers/<driver>.py`, whose
+  `Driver(config, traffic, seed, device)` exposes the methods below and
+  may have `order`, the requests of one pass, whose sample keys the
+  control walks (without it, request 0's key alone);
+- a module for each metric that is new, as below;
+- in BENCHMARK.json, the workload, and its name in the `workloads` of each
+  end-to-end metric it reports and of at least one per-layer metric.
+A driver exposes:
   setup()               make the inputs from the seed and warm up every shape
   call(i)               the i-th request through the program; returns its output
   work(i)               (texels, blocks) of the i-th request
@@ -15,7 +29,9 @@ reports is read by `metrics/<metric>.py`.  A driver exposes:
   control_outputs(keys) the control's output for each key, in the program's form
 A metric's module has `read(record) -> float | None`, and may name
 `SPANS`: {label: ["module:function", ...]}, program functions whose calls
-the traced run times under that label."""
+the traced run times under that label, and `CPU_READS`: "none" where it
+reads nothing without a card, "zero" where it may read 0 there (the
+benchmark's tests on the CPU want every other host-clock metric above 0)."""
 
 from __future__ import annotations
 

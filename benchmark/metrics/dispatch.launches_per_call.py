@@ -6,6 +6,9 @@ from benchmark.metrics import _recorder
 
 _recorder.start()
 
+# the plain versions that run without a card launch no CUDA kernel
+CPU_READS = "zero"
+
 
 def read(record):
     return _recorder.per_call(record, "launches")

@@ -7,6 +7,9 @@ from benchmark.metrics import _recorder
 
 _recorder.start()
 
+# an ETC1S read waits for the card nowhere: it reads 0 with a card as without one
+CPU_READS = "zero"
+
 
 def read(record):
     return _recorder.per_call(record, "host_syncs")

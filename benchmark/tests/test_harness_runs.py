@@ -16,17 +16,14 @@ import torch
 from benchmark import control, core
 
 ROOT = Path(__file__).resolve().parents[2]
-SMALL = {
-    "resident-2e23": {"blocks": 3000},
-    "files-mip": {"textures": [[16, 2], [32, 1], [36, 1]]},
-}
 CELLS = [w["name"] for w in json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]]
 SEED = 2**31 + 1234567  # past 32 signed bits, as the driver's seeds are
 
 
 def small_cell(name):
+    """The cell at the size its traffic file gives runs on the CPU (`cpu_test`)."""
     cell = core.load_cell(name)
-    cell.traffic.update(SMALL[cell.traffic["name"]], trace_seconds=0.2)
+    cell.traffic.update(cell.traffic["cpu_test"], trace_seconds=0.2)
     return cell
 
 
@@ -43,11 +40,18 @@ def test_sound_run_is_correct(name, traced):
     assert line["failed"] == 0 and line["attempted"] >= 1
     assert list(line)[-1] == "checks"
     cell = small_cell(name)
-    want = {m["name"] for m in (cell.per_layer if traced else cell.end_to_end)}
-    # the CPU has no device trace: device-trace readers find nothing to read
-    device_only = {m["name"] for m in cell.per_layer if m["source"] == "device_trace"}
-    assert want - device_only <= set(line["metrics"]) <= want
-    assert all(v["value"] > 0 for k, v in line["metrics"].items() if k not in device_only)
+    want = cell.per_layer if traced else cell.end_to_end
+    got = {k: v["value"] for k, v in line["metrics"].items()}
+    assert set(got) <= {m["name"] for m in want}
+    for m in want:
+        if traced and m["source"] == "device_trace":  # the CPU has no device trace: its per-layer readers find nothing
+            continue
+        # a metric's module says where it reads nothing, or may read 0, without a card
+        reads = getattr(core.load_metric(m["name"]), "CPU_READS", None)
+        if reads == "none" and m["name"] not in got:
+            continue
+        assert m["name"] in got, m["name"]
+        assert got[m["name"]] >= 0 if reads == "zero" else got[m["name"]] > 0, (m["name"], got[m["name"]])
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -58,30 +62,33 @@ def test_control_is_not_correct(name):
 
 
 def _half(out):
-    """Half of the batch left out: the second half of the rows never written."""
+    """Half of the batch left out: the second half of the rows never
+    written, or of the images never made, in every list of an output's
+    nesting of lists and tuples ((rows, err) keeps its err)."""
+    if isinstance(out, torch.Tensor):
+        out = out.clone()
+        out[out.shape[0] // 2 :] = 0
+        return out
     if isinstance(out, tuple):
-        rows, err = out
-        rows = rows.clone()
-        rows[rows.shape[0] // 2 :] = 0
-        return rows, err
-    if isinstance(out, list):
-        return out[: len(out) // 2]
-    out = out.clone()
-    out[out.shape[0] // 2 :] = 0
-    return out
+        return (_half(out[0]), *out[1:])
+    if out and isinstance(out[0], (list, tuple)):
+        return [_half(o) for o in out]
+    return out[: len(out) // 2]
 
 
 def _altered(out):
-    """One answer altered where it is produced: one byte of one block."""
+    """One answer altered where it is produced: one byte of one block, in
+    the last image or rows of an output's nesting of lists and tuples."""
+    if isinstance(out, torch.Tensor):
+        out = out.clone()
+        flat = out.view(torch.uint8).reshape(-1)
+        flat[flat.numel() // 3] ^= 0x10
+        return out
     if isinstance(out, tuple):
-        return _altered(out[0]), out[1]
+        return (_altered(out[0]), *out[1:])
     if isinstance(out, list):
-        first = out[-1]
-        return out[:-1] + [type(first)(w=first.w, h=first.h, stride=first.stride, data=_altered(first.data))]
-    out = out.clone()
-    flat = out.view(torch.uint8).reshape(-1)
-    flat[flat.numel() // 3] ^= 0x10
-    return out
+        return out[:-1] + [_altered(out[-1])]
+    return type(out)(w=out.w, h=out.h, stride=out.stride, data=_altered(out.data))  # an image
 
 
 def _passthrough(out, driver):
@@ -107,7 +114,10 @@ def test_faults_are_not_correct(name, fault, monkeypatch):
     line, info = run(name)
     assert not line["correct"]
     assert line["failed"] >= 1
-    assert any(v["value"] > v["limit"] for v in line["checks"].values())
+    # the check caught the fault in the outputs: no call raised on it
+    checks = line["checks"]
+    assert checks["failed_calls"]["value"] == 0, info["errors"]
+    assert any(checks[k]["value"] > checks[k]["limit"] for k in ("bad_bytes", "bad_images") if k in checks), checks
 
 
 def test_passthrough_is_not_correct(monkeypatch):
@@ -149,13 +159,11 @@ def test_no_jax_in_a_run():
     code = (
         "import time, json\n"
         "from benchmark import core, control, run, trace\n"
-        "for name, traffic in [('uastc-bc7.resident-2e23', {'blocks': 512}),"
-        " ('etc1s-rgba.files-mip', {'textures': [[8, 1]]}), ('uastc-bc7.files-mip', {'textures': [[8, 1]]}),"
-        " ('etc1s-rgba.resident-2e23', {'blocks': 512})]:\n"
+        f"for name in {CELLS!r}:\n"
         "    for traced in (False, True):\n"
-        "        cell = core.load_cell(name); cell.traffic.update(traffic, trace_seconds=0.05)\n"
+        "        cell = core.load_cell(name); cell.traffic.update(cell.traffic['cpu_test'], trace_seconds=0.05)\n"
         "        line, _ = core.run_cell(cell, 1, 0.1, traced, 'cpu', time.perf_counter())\n"
-        "        assert line['correct']\n"
+        "        assert line['correct'], name\n"
         "print(json.dumps(core.forbidden_modules()))\n"
     )
     p = _fresh(code)

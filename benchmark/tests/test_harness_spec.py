@@ -1,9 +1,15 @@
-"""BENCHMARK.json against the benchmark's files and naming rules."""
+"""BENCHMARK.json against the benchmark's files and naming rules, and a
+new cell joining by new files alone."""
 
 import json
 import math
+import os
 import re
+import shutil
+import subprocess
+import sys
 from pathlib import Path
+from xml.etree import ElementTree
 
 import pytest
 
@@ -14,6 +20,7 @@ SPEC = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 METRICS = SPEC["end_to_end"] + SPEC["per_layer"]
+TRAFFIC = sorted({w["traffic"] for w in SPEC["workloads"]})
 
 
 def test_top_level_keys():
@@ -72,6 +79,28 @@ def test_cell_resolves(cell):
     assert c.per_layer
 
 
+def _numbers(value):
+    """Every number in a parameter's nesting of lists."""
+    if isinstance(value, list):
+        return [n for v in value for n in _numbers(v)]
+    assert isinstance(value, (int, float)) and not isinstance(value, bool), value
+    return [value]
+
+
+@pytest.mark.parametrize("name", TRAFFIC)
+def test_traffic_has_a_cpu_size(name):
+    """`cpu_test` only shrinks the mix's own sizes for runs on the CPU: it
+    names only numeric parameters of the file's own, none that the harness
+    reads for every mix (samples, the traced seconds), and no number in it,
+    nor their sum, is above the full-size value's."""
+    traffic = json.loads((ROOT / "benchmark" / "traffic" / f"{name}.json").read_text())
+    small = traffic["cpu_test"]
+    assert small and set(small) <= set(traffic) - {"name", "driver", "why", "cpu_test", "samples_per_key", "trace_seconds"}
+    for key, value in small.items():
+        cut, full = _numbers(value), _numbers(traffic[key])
+        assert cut and max(cut) <= max(full) and sum(cut) <= sum(full), (key, value, traffic[key])
+
+
 @pytest.mark.parametrize("config", SPEC["configs"], ids=lambda c: c["name"])
 def test_config_file(config):
     path = ROOT / config["file"]
@@ -82,3 +111,36 @@ def test_config_file(config):
     assert any(w["config"] == config["name"] for w in SPEC["workloads"])
     assert 4 * sum(w["chips"] == 4 for w in SPEC["workloads"]) <= max(4, len(SPEC["workloads"]))
     assert math.isfinite(data["hbm_bytes_per_block"])
+
+
+def test_a_new_mix_joins_by_new_files(tmp_path):
+    """In a copy of the benchmark, a cell with a mix of its own, added as a
+    traffic file and entries of BENCHMARK.json alone, passes the harness's
+    own tests: the probe mix `probe-mip` (the files driver at files-mip's
+    sizes) as the cell `uastc-bc7.probe-mip`, under the file cells'
+    metrics.  The copy's tests run in a fresh process, with the repository
+    on the path for the program."""
+    shutil.copytree(ROOT / "benchmark", tmp_path / "benchmark", ignore=shutil.ignore_patterns("__pycache__"))
+    files_mip = json.loads((ROOT / "benchmark" / "traffic" / "files-mip.json").read_text())
+    probe = dict(files_mip, name="probe-mip", cpu_test={"textures": [[16, 1], [32, 1]]},
+                 why="files-mip's reads under a name of their own")
+    (tmp_path / "benchmark" / "traffic" / "probe-mip.json").write_text(json.dumps(probe, indent=2))
+    spec = json.loads((ROOT / "BENCHMARK.json").read_text())
+    cell = "uastc-bc7.probe-mip"
+    spec["workloads"].append({"name": cell, "config": "uastc-bc7", "traffic": "probe-mip", "chips": 1,
+                              "why": "the UASTC file reads of uastc-bc7.files-mip, by a new mix's files"})
+    for metric in spec["end_to_end"] + spec["per_layer"]:
+        if metric["name"] in ("file_mtexels_s", "file_p95_ms", "device.idle_pct.file"):
+            metric["workloads"].append(cell)
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec, indent=1))
+
+    xml = tmp_path / "probe.xml"
+    env = dict(os.environ, PYTHONPATH=str(ROOT), PYTHONDONTWRITEBYTECODE="1")
+    p = subprocess.run(
+        [sys.executable, "-m", "pytest", "benchmark/tests", "-q", "-k", "probe-mip", "-p", "no:cacheprovider",
+         f"--junitxml={xml}"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=600,
+    )
+    assert p.returncode == 0, p.stdout[-4000:]  # none failed
+    suite = ElementTree.parse(xml).getroot().find("testsuite")
+    assert int(suite.get("tests")) - int(suite.get("skipped")) >= 5, p.stdout[-4000:]
