@@ -10,10 +10,9 @@
 // front-end in the same module.  C ABI only; error codes are negative, 0 is
 // success.
 //
-// Widths this code is written against: peek() takes up to 32 bits (a shift
-// by 32 is undefined, so count >= 32 returns the whole low word); a code
-// length is at most 16 bits, and a table whose canonical codes overflow 16
-// bits (next_code[bits] > 0x10000) is refused.
+// Widths this code is written against: a code length is at most 16 bits,
+// and a table whose canonical codes overflow 16 bits (next_code[bits] >
+// 0x10000) is refused; a plain read() takes at most 32 bits.
 
 #include <cstdint>
 #include <cstring>
@@ -26,52 +25,76 @@ constexpr int kMaxCodeSize = 16;
 // ---------------------------------------------------------------------------
 // bit reader: LSB-first, reads past the end yield zero bits
 // ---------------------------------------------------------------------------
+// The next bits of the stream sit in a 64-bit buffer, lowest first.  refill()
+// tops it up to 56-63 valid bits with one unaligned 8-byte load (the next
+// byte lands at bit `bits`; the bytes the count does not cover are loaded
+// again, to the same bits, by the next refill), and a caller peeks with
+// `buf & mask` and consumes with skip(n).  A caller refills before any run
+// of reads that could take more than 56 bits: the slice loop once a block
+// (its pred, delta and selector codes are at most 3 x 16 = 48 bits), read()
+// before each VLC chunk (at most 8 bits, so at least 48 remain after a VLC)
+// and the slice loop again before the selector-RLE symbol.  Within the last
+// 8 bytes a refill loads what is left and zero bytes past it.
 struct BitReader {
-  const uint8_t* data;
-  size_t len;
-  size_t bit_pos = 0;
+  const uint8_t* p;    // the next byte a refill loads
+  const uint8_t* end;  // one past the stream's last byte
+  uint64_t buf = 0;    // the stream from bit 8 * p - bits on
+  unsigned bits = 0;   // valid low bits of buf
 
-  // 57+ low bits of the stream starting at bit_pos (reads past the end are
-  // zero bits): one unaligned 8-byte little-endian load where it fits.
-  uint64_t window() const {
-    size_t byte = bit_pos >> 3;
-    uint64_t acc;
-    if (byte + 8 <= len) {
-      std::memcpy(&acc, data + byte, 8);
-    } else {
-      acc = 0;
-      for (size_t k = 0; byte + k < len; ++k) acc |= (uint64_t)data[byte + k] << (8 * k);
+  BitReader(const uint8_t* data, size_t len) : p(data), end(data + len) {}
+
+  void refill() {
+    uint64_t v;
+    size_t step = (63 - bits) >> 3;  // the whole bytes free in buf
+    if (end - p >= 8) {
+      std::memcpy(&v, p, 8);
+    } else {  // p stops at the end: the bits past it are zero
+      size_t left = (size_t)(end - p);
+      v = 0;
+      for (size_t k = 0; k < left; ++k) v |= (uint64_t)p[k] << (8 * k);
+      if (step > left) step = left;
     }
-    return acc >> (bit_pos & 7);
+    buf |= v << bits;
+    p += step;
+    bits |= 56;
   }
-  uint32_t peek(int count) const {
-    uint64_t acc = window();
-    return (count >= 32) ? (uint32_t)acc : (uint32_t)(acc & ((1u << count) - 1));
+  void skip(unsigned n) {
+    buf >>= n;
+    bits -= n;
   }
   uint32_t read(int count) {
-    uint32_t v = peek(count);
-    bit_pos += count;
+    refill();
+    uint32_t v = (uint32_t)(buf & ((uint64_t(1) << count) - 1));
+    skip(count);
     return v;
   }
+};
+
+// Symbols a slice decoded, and those that took a subtable.
+struct SymbolCounts {
+  uint64_t symbols = 0, sub = 0;
 };
 
 // ---------------------------------------------------------------------------
 // canonical Huffman decoding table (bit-reversed codes)
 // ---------------------------------------------------------------------------
 struct HuffTable {
-  // Two-level lookup: a root table of at most 1 << kRootBits entries plus
-  // per-prefix subtables for codes longer than kRootBits, so the root stays
-  // small (4 KiB) while a 16-bit flat table would be 256 KiB; long codes
-  // carry the rare symbols.
+  // Two-level lookup: a root table indexed by the next root_bits bits, plus
+  // per-prefix subtables for codes longer than root_bits.  root_bits is the
+  // table's longest code, capped at kMaxRootBits: codes of up to 12 bits
+  // (equal-length codebooks of up to 4,096 entries) take one load from a root
+  // of at most 16 KiB, and only codes of 13-16 bits (codebooks up to 16,128
+  // entries) take the subtable; a flat 16-bit table would be 256 KiB.
   //
   // entry layout (u32):
   //   leaf:    code_size << 16 | symbol   (code_size >= 1)
   //   branch:  0x80000000 | extra_bits << 24 | subtable_base
   //   invalid: 0
-  static constexpr int kRootBits = 10;
+  static constexpr int kMaxRootBits = 12;
   std::vector<uint32_t> entries;  // root
   std::vector<uint32_t> sub;      // subtable pool
   uint32_t mask = 0;
+  int root_bits = 0;
   int max_code_size = 0;
 
   // returns 0 on success
@@ -89,7 +112,7 @@ struct HuffTable {
       total = (total + counts[bits - 1]) << 1;
       next_code[bits] = total;
     }
-    int root_bits = max_code_size < kRootBits ? max_code_size : kRootBits;
+    root_bits = max_code_size < kMaxRootBits ? max_code_size : kMaxRootBits;
     entries.assign(size_t(1) << root_bits, 0);
     sub.clear();
     mask = (uint32_t)entries.size() - 1;
@@ -145,16 +168,25 @@ struct HuffTable {
     return 0;
   }
 
-  int decode(BitReader& r) const {
-    uint64_t w = r.window();
-    uint32_t e = entries[(uint32_t)w & mask];
-    if ((int32_t)e < 0) {  // branch: a long (rare) code
+  // The next symbol, its code consumed; -1 where no code matches.  The
+  // reader holds at least kMaxCodeSize valid bits (the caller refilled).
+  int decode(BitReader& r, SymbolCounts& n) const {
+    uint32_t e = entries[(uint32_t)r.buf & mask];
+    n.symbols++;
+    if ((int32_t)e < 0) {  // branch: a code longer than root_bits
+      n.sub++;
       uint32_t extra = (e >> 24) & 0x7F;
-      e = sub[(e & 0xFFFFFF) + (((uint32_t)(w >> kRootBits)) & ((1u << extra) - 1))];
+      e = sub[(e & 0xFFFFFF) + ((uint32_t)(r.buf >> root_bits) & ((1u << extra) - 1))];
     }
     if (!(e >> 16)) return -1;
-    r.bit_pos += e >> 16;
+    r.skip(e >> 16);
     return (int)(e & 0xFFFF);
+  }
+  // The codebooks and tables, which count nothing: a refill, then decode.
+  int read_symbol(BitReader& r) const {
+    SymbolCounts uncounted;
+    r.refill();
+    return decode(r, uncounted);
   }
 };
 
@@ -172,7 +204,7 @@ int read_huffman_table(BitReader& r, HuffTable* out) {
   std::vector<uint8_t> sizes;
   sizes.reserve(total_used_syms);
   while ((int)sizes.size() < total_used_syms) {
-    int sym = clc.decode(r);
+    int sym = clc.read_symbol(r);
     if (sym < 0) return -3;
     if (sym <= 16) {
       sizes.push_back((uint8_t)sym);
@@ -197,7 +229,7 @@ uint32_t decode_vlc(BitReader& r, int chunk_bits, int* err) {
   uint32_t v = 0;
   int ofs = 0;
   for (;;) {
-    uint32_t s = r.read(chunk_bits + 1);
+    uint32_t s = r.read(chunk_bits + 1);  // refills
     v |= (s & chunk_mask) << ofs;
     ofs += chunk_bits;
     if (!(s & chunk_size)) return v;
@@ -223,8 +255,11 @@ struct Decoder {
 //     by masks; only pred == 3 branches, since it consumes stream bits;
 //   - selector: the fresh-vs-history choice is one load plus the MTF swap or
 //     the history append.
+// The bit reader and the symbol counts are locals, so they live in
+// registers; `counts` receives the counts of a slice that decodes.
 template <bool kVideo>
-int decode_slice_impl(const Decoder& d, BitReader& r, int nbx, int nby, uint16_t* ep_out, uint16_t* sel_out) {
+int decode_slice_impl(const Decoder& d, const uint8_t* data, size_t len, int nbx, int nby, uint16_t* ep_out,
+                      uint16_t* sel_out, SymbolCounts* counts) {
   const uint32_t num_endpoints = (uint32_t)d.num_endpoints;
   const uint32_t num_selectors = (uint32_t)d.num_selectors;
   const uint32_t hist_size = d.history_size;
@@ -249,6 +284,8 @@ int decode_slice_impl(const Decoder& d, BitReader& r, int nbx, int nby, uint16_t
   uint32_t pred_repeat_count = 0;
   uint32_t prev_endpoint_index = 0;
   int err = 0;
+  BitReader r{data, len};
+  SymbolCounts n;
 
   size_t bi = 0;
   for (int by = 0; by < nby; ++by) {
@@ -258,13 +295,14 @@ int decode_slice_impl(const Decoder& d, BitReader& r, int nbx, int nby, uint16_t
     uint8_t* bits_here = pred_bits_row.data() + (size_t)cur_row * nbx;
     uint8_t* bits_below = pred_bits_row.data() + (size_t)(cur_row ^ 1) * nbx;
     for (int bx = 0; bx < nbx; ++bx, ++bi) {
+      r.refill();  // the pred, delta and selector codes: at most 48 bits
       if ((bx & 1) == 0) {
         if ((by & 1) == 0) {
           if (pred_repeat_count != 0) {
             pred_repeat_count--;
             cur_pred_bits = prev_pred_sym;
           } else {
-            int sym = d.endpoint_pred.decode(r);
+            int sym = d.endpoint_pred.decode(r, n);
             if (sym < 0) return -3;
             if (sym == 256) {  // ENDPOINT_PRED_REPEAT_LAST_SYMBOL
               pred_repeat_count = decode_vlc(r, 4, &err) + 3 - 1;
@@ -286,7 +324,7 @@ int decode_slice_impl(const Decoder& d, BitReader& r, int nbx, int nby, uint16_t
 
       uint32_t endpoint_index;
       if (pred == 3) {
-        int delta = d.delta_endpoint.decode(r);
+        int delta = d.delta_endpoint.decode(r, n);
         if (delta < 0) return -3;
         uint32_t ei = (uint32_t)delta + prev_endpoint_index;
         if (ei >= num_endpoints) ei -= num_endpoints;
@@ -313,10 +351,11 @@ int decode_slice_impl(const Decoder& d, BitReader& r, int nbx, int nby, uint16_t
           cur_selector_rle_count--;
           selector_sym = num_selectors;
         } else {
-          int sym = d.selector.decode(r);
+          int sym = d.selector.decode(r, n);
           if (sym < 0) return -3;
           if ((uint32_t)sym == history_rle_sym) {
-            int run_sym = d.selector_rle.decode(r);
+            r.refill();  // the run symbol may start past the block's 56 bits
+            int run_sym = d.selector_rle.decode(r, n);
             if (run_sym < 0) return -3;
             if (run_sym == 63) {
               cur_selector_rle_count = 3 + decode_vlc(r, 7, &err);
@@ -358,6 +397,7 @@ int decode_slice_impl(const Decoder& d, BitReader& r, int nbx, int nby, uint16_t
       sel_out[bi] = (uint16_t)selector_index;
     }
   }
+  *counts = n;
   return 0;
 }
 
@@ -377,7 +417,7 @@ int etc1s_decode_endpoints(const uint8_t* data, size_t len, int num_endpoints, u
   int prev_color5[3] = {16, 16, 16};
   uint32_t prev_inten = 0;
   for (int e = 0; e < num_endpoints; ++e) {
-    int ds = inten.decode(r);
+    int ds = inten.read_symbol(r);
     if (ds < 0) return -3;
     uint32_t iv = ((uint32_t)ds + prev_inten) & 7;
     prev_inten = iv;
@@ -387,7 +427,7 @@ int etc1s_decode_endpoints(const uint8_t* data, size_t len, int num_endpoints, u
       int p = prev_color5[c];
       // the delta model is chosen by the previous value's range (mod.rs:487-498)
       HuffTable& m = models[p <= 9 ? 0 : (p <= 21 ? 1 : 2)];
-      int delta = m.decode(r);
+      int delta = m.read_symbol(r);
       if (delta < 0) return -3;
       int v = (p + delta) & 31;
       out[e * 4 + c] = (uint8_t)v;
@@ -419,7 +459,7 @@ int etc1s_decode_selectors(const uint8_t* data, size_t len, int num_selectors, u
         if (s == 0) {
           cur = (uint8_t)r.read(8);
         } else {
-          int d = model.decode(r);
+          int d = model.read_symbol(r);
           if (d < 0) return -3;
           cur = (uint8_t)(d ^ prev[y]);
         }
@@ -456,13 +496,18 @@ void etc1s_destroy(void* h) { delete static_cast<Decoder*>(h); }
 uint32_t etc1s_history_size(void* h) { return static_cast<Decoder*>(h)->history_size; }
 
 // The sequential prediction state machine over one slice.
-// ep_out / sel_out: uint16 [nbx * nby].
-int etc1s_decode_slice(void* h, const uint8_t* data, size_t len, int nbx, int nby, uint16_t* ep_out,
-                       uint16_t* sel_out) {
-  Decoder& d = *static_cast<Decoder*>(h);
-  BitReader r{data, len};
-  return d.is_video ? decode_slice_impl<true>(d, r, nbx, nby, ep_out, sel_out)
-                    : decode_slice_impl<false>(d, r, nbx, nby, ep_out, sel_out);
+// ep_out / sel_out: uint16 [nbx * nby].  counts: uint64 [2], the Huffman
+// symbols the slice decoded and those its root lookups resolved alone (0
+// and 0 where it fails).  The handle is only read, so threads may share it.
+int etc1s_decode_slice(const void* h, const uint8_t* data, size_t len, int nbx, int nby, uint16_t* ep_out,
+                       uint16_t* sel_out, uint64_t* counts) {
+  const Decoder& d = *static_cast<const Decoder*>(h);
+  SymbolCounts n;
+  int rc = d.is_video ? decode_slice_impl<true>(d, data, len, nbx, nby, ep_out, sel_out, &n)
+                      : decode_slice_impl<false>(d, data, len, nbx, nby, ep_out, sel_out, &n);
+  counts[0] = n.symbols;
+  counts[1] = n.symbols - n.sub;
+  return rc;
 }
 
 }  // extern "C"

@@ -37,6 +37,7 @@ import numpy as np
 from ..api import BasisError
 from ..ops import build
 from ..utils.bitio import BitReaderLsb
+from ..utils.profiling import count
 from .huffman import HuffmanError, read_huffman_table
 
 ENDPOINT_PRED_TOTAL_SYMBOLS = 4 * 4 * 4 * 4 + 1
@@ -172,7 +173,7 @@ def _lib() -> ctypes.CDLL:
         ("etc1s_create", p, [p, n, i, i, i]),
         ("etc1s_destroy", None, [p]),
         ("etc1s_history_size", ctypes.c_uint32, [p]),
-        ("etc1s_decode_slice", i, [p, p, n, i, i, p, p]),
+        ("etc1s_decode_slice", i, [p, p, n, i, i, p, p, p]),
     ):
         fn = getattr(lib, name)
         fn.restype = res
@@ -220,9 +221,15 @@ class _NativeModels:
         return int(self._lib.etc1s_history_size(self._h))
 
     def decode_slice(self, nbx: int, nby: int, data, ep: np.ndarray, sel: np.ndarray) -> None:
+        """One slice into ep and sel; counts `huff_symbols`, the Huffman
+        symbols it decoded, and `huff_root_symbols`, those the C++ table's
+        root lookup resolved without a subtable."""
         arr = _bytes(data)
+        counts = (ctypes.c_uint64 * 2)()
         _check(self._lib.etc1s_decode_slice(self._h, arr.ctypes.data, arr.size, nbx, nby, ep.ctypes.data,
-                                            sel.ctypes.data))
+                                            sel.ctypes.data, counts))
+        count("huff_symbols", counts[0])
+        count("huff_root_symbols", counts[1])
 
     def __del__(self):
         if getattr(self, "_h", None):

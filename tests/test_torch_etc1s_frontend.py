@@ -6,10 +6,13 @@ against the JAX package's front-end and the reference-transcribed oracle
 (tests/oracle_etc1s.py) on the fuzz streams of tests/test_etc1s_oracle.py
 (history buffer, RLE runs, texture video), bit-exact; codebook flavours the
 writer does not emit (Huffman-coded selectors, grayscale endpoints); the
-error messages of each path against the same path of the JAX package; and
+error messages of each path against the same path of the JAX package; the
+C++ symbol decoder on code lengths of 1 to 16 bits (either side of its 12-bit
+root), its refills, its tail, truncated streams and its symbol counters; and
 the Huffman tables and bit I/O they rest on (as tests/test_huffman.py)."""
 
 import heapq
+from functools import lru_cache
 
 import numpy as np
 import pytest
@@ -20,18 +23,20 @@ import basisu_rs_tpu.container.huffman as jh
 import basisu_rs_tpu.container.writer as jw
 import basisu_rs_tpu_torch.container.basis as tb
 from basisu_rs_tpu_torch.api import BasisError
-from basisu_rs_tpu_torch.container.etc1s_frontend import Etc1sDecoder, Etc1sError
+from basisu_rs_tpu_torch.container.etc1s_frontend import NATIVE_ERRORS, Etc1sDecoder, Etc1sError
 from basisu_rs_tpu_torch.container.huffman import HuffmanDecodingTable, HuffmanError, read_huffman_table
 from basisu_rs_tpu_torch.container.writer import (
     CanonicalEncoder,
     encode_etc1s_endpoint_codebook,
     encode_etc1s_selector_codebook,
     equal_length_sizes,
+    _write_vlc,
     write_etc1s_basis_fuzz,
     write_huffman_table,
 )
+from basisu_rs_tpu_torch.utils import profiling
 from basisu_rs_tpu_torch.utils.bitio import BitReaderLsb, BitWriterLsb
-from oracle_etc1s import oracle_make_decoder
+from oracle_etc1s import OracleEtc1sDecoder, oracle_make_decoder
 from torch_cases import etc1s_codebooks as codebooks
 
 FRONTENDS = [True, False]  # native, plain
@@ -84,8 +89,9 @@ def deep_file():
 
 @pytest.mark.parametrize("native", FRONTENDS, ids=["native", "plain"])
 def test_deep_huffman_tables(deep_file, native):
-    # every selector code is 13 bits, past the C++ table's 10-bit root: each
-    # decode takes a subtable
+    # every endpoint delta code is 12 bits, which the C++ table's root (as
+    # wide as the longest code, at most 12 bits) resolves alone; every
+    # selector code is 13 bits, past the root: each takes a subtable
     buf, exp_ep, exp_sel = deep_file
     dec = Etc1sDecoder(*sections(buf), native=native)
     sl = dec.decode_slice(40, 10, tb.read_slice_descs(buf, tb.read_header(buf))[0].data(buf))
@@ -103,6 +109,196 @@ def test_decode_into_views_of_one_buffer():
     np.testing.assert_array_equal(host[0, 2:17], exp_ep)
     np.testing.assert_array_equal(host[1, 2:17], exp_sel)
     assert not host[:, :2].any() and not host[:, 17:].any()
+
+
+# ---------------------------------------------------------------------------
+# the C++ symbol decoder: root widths either side of its 12-bit cap, the bit
+# buffer's refills and its tail, and its symbol counters
+# ---------------------------------------------------------------------------
+
+
+@lru_cache(maxsize=None)
+def _coded_books(e, s):
+    """(endpoint codebook bytes, selector codebook bytes) of seeded codebooks."""
+    endpoints, selectors = codebooks(np.random.default_rng(e * 7 + s), e, s)
+    return encode_etc1s_endpoint_codebook(endpoints), encode_etc1s_selector_codebook(selectors)
+
+
+def _coded_slice(delta_sizes, sel_sizes, nbx, nby, seed, pred_sizes=None):
+    """(decoder args, payload) of one slice whose blocks all take pred 3 (the
+    group symbol 255): each block an endpoint delta and a selector, drawn
+    uniformly over the tables' symbols (E = len(delta_sizes), S =
+    len(sel_sizes)), coded with these code lengths."""
+    e, s = len(delta_sizes), len(sel_sizes)
+    tw = BitWriterLsb()
+    pred_enc = write_huffman_table(tw, pred_sizes or equal_length_sizes(257))
+    delta_enc = write_huffman_table(tw, delta_sizes)
+    sel_enc = write_huffman_table(tw, sel_sizes)
+    write_huffman_table(tw, equal_length_sizes(64))
+    tw.write(13, 0)
+    rng = np.random.default_rng(seed)
+    w = BitWriterLsb()
+    prev = 0
+    for by in range(nby):
+        for bx in range(nbx):
+            if bx % 2 == 0 and by % 2 == 0:
+                pred_enc.encode(w, 255)
+            ep = int(rng.integers(0, e))
+            delta_enc.encode(w, (ep - prev) % e)
+            prev = ep
+            sel_enc.encode(w, int(rng.integers(0, s)))
+    return (e, s, *_coded_books(e, s), tw.getvalue()), w.getvalue()
+
+
+def _streams_of_every_frontend(args, nbx, nby, payload):
+    """[native, plain, JAX, oracle] (endpoint, selector) index streams of
+    one slice; each front-end's error message in its place where it raises."""
+    out = []
+    for decode in (lambda: Etc1sDecoder(*args).decode_slice(nbx, nby, payload),
+                   lambda: Etc1sDecoder(*args, native=False).decode_slice(nbx, nby, payload),
+                   lambda: jf.Etc1sDecoder(*args).decode_slice(nbx, nby, bytes(payload))):
+        try:
+            sl = decode()
+            out.append((sl.endpoint_index.tolist(), sl.selector_index.tolist()))
+        except (BasisError, ValueError) as exc:
+            out.append(str(exc))
+    try:
+        pairs = OracleEtc1sDecoder(*args).decode_blocks(nbx, nby, bytes(payload))
+        out.append(([p[0] for p in pairs], [p[1] for p in pairs]))
+    except Exception as exc:  # the reference's assert sites
+        out.append(type(exc).__name__)
+    return out
+
+
+@pytest.mark.parametrize("bits", [9, 11, 12, 13, 16])
+def test_equal_length_codes_either_side_of_the_root_cap(bits):
+    # every delta and selector code `bits` long, E = S = 2^(bits-1) + 1 (the
+    # shortest such codes), or for 16 bits the 16,383 symbols a table's 14-bit
+    # count allows (an incomplete code); the root holds codes up to 12 bits,
+    # 13 and 16 take a subtable
+    n = min((1 << (bits - 1)) + 1, (1 << 14) - 1)
+    assert bits == 16 or equal_length_sizes(n) == [bits] * n
+    args, payload = _coded_slice([bits] * n, [bits] * n, 24, 20, seed=bits)
+    native, plain, jax_stream, oracle = _streams_of_every_frontend(args, 24, 20, payload)
+    assert native == plain == jax_stream == oracle
+
+
+SKEWED = list(range(1, 16)) + [16, 16]  # Kraft-complete, codes of 1 to 16 bits
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_skewed_codes_of_1_to_16_bits(seed):
+    args, payload = _coded_slice(SKEWED, SKEWED[::-1], 24, 20, seed=seed, pred_sizes=[0] * 255 + [1])
+    native, plain, jax_stream, oracle = _streams_of_every_frontend(args, 24, 20, payload)
+    assert native == plain == jax_stream == oracle
+    assert len(set(native[0])) == len(set(native[1])) == len(SKEWED)  # every code length decoded
+
+
+@pytest.mark.parametrize("pad", range(9))
+@pytest.mark.parametrize("shape", [(1, 1), (3, 2), (7, 5)])
+def test_last_symbol_ends_in_each_of_the_last_bytes(shape, pad):
+    # `pad` bytes of ones after the last code: the final refills load the
+    # stream's last 0-8 bytes and zero bytes past them (a 1x1 slice is under
+    # 8 bytes long in all); ones would decode if the reader ran past its data
+    args, payload = _coded_slice(SKEWED, equal_length_sizes(300), *shape, seed=pad)
+    native, plain, jax_stream, oracle = _streams_of_every_frontend(args, *shape, payload + b"\xff" * pad)
+    assert native == plain == jax_stream == oracle
+    assert [native, plain] == _streams_of_every_frontend(args, *shape, payload)[:2]
+
+
+@pytest.mark.parametrize("cut", [1, 3, 9, 40, 150, 233, 280, 305, 314])
+def test_truncated_streams(cut):
+    # past the end the reader gives zero bits, which decode to symbol 0: group
+    # symbol 0 puts pred 0 (left) at column 0, which each path refuses with the
+    # message its JAX counterpart gives (a cut inside a group symbol may give
+    # another pred); a cut in the last rows decodes to the end (of 315 bytes)
+    args, payload = _coded_slice(equal_length_sizes(2049), equal_length_sizes(2049), 12, 8, seed=cut)
+    assert cut < len(payload)
+    native, plain, jax_stream, oracle = _streams_of_every_frontend(args, 12, 8, payload[:cut])
+    jax_plain = jf.Etc1sDecoder(*args, use_native=False)
+    try:
+        sl = jax_plain.decode_slice(12, 8, bytes(payload[:cut]))
+        jax_plain = (sl.endpoint_index.tolist(), sl.selector_index.tolist())
+    except ValueError as exc:
+        jax_plain = str(exc)
+    assert native == jax_stream and plain == jax_plain
+    if isinstance(native, str):
+        assert native in NATIVE_ERRORS.values() and isinstance(plain, str) and isinstance(oracle, str)
+    else:
+        assert native == plain == oracle
+
+
+def _run_block(repeat):
+    """(decoder args, payload, nbx, nby): every code 16 bits, and block (2, 0)
+    takes its group symbol, its delta, the selector-RLE symbol and run symbol
+    63 (64 bits, past the 56 of the block's refill), then a VLC of 5 chunks
+    (40 bits); repeat=True makes the group symbol the pred-repeat symbol and
+    a VLC of 8 chunks (40 bits) after it: 144 bits in one block."""
+    e, s, hist = 8, 6, 4
+    tw = BitWriterLsb()
+    pred_enc, delta_enc, sel_enc, rle_enc = (write_huffman_table(tw, [16] * k) for k in (257, e, s + hist + 1, 64))
+    tw.write(13, hist)
+    w = BitWriterLsb()
+    pred_enc.encode(w, 255)  # blocks (0, 0), (1, 0): pred 3, fresh selectors
+    for k in range(2):
+        delta_enc.encode(w, 3 + k)
+        sel_enc.encode(w, 1 + k)
+    if repeat:  # block (2, 0): repeat the group symbol
+        pred_enc.encode(w, 256)
+        _write_vlc(w, (1 << 31) + 5, 4)
+    else:
+        pred_enc.encode(w, 255)
+    delta_enc.encode(w, 5)
+    sel_enc.encode(w, s + hist)  # a run of history entry 0
+    rle_enc.encode(w, 63)
+    _write_vlc(w, (1 << 30) + 9, 7)
+    for k in range(6 * 2 - 3):  # the other blocks: deltas, their selectors from the run
+        if k == 1 and not repeat:
+            pred_enc.encode(w, 255)  # block (4, 0)'s group
+        delta_enc.encode(w, 1)
+    return (e, s, *_coded_books(e, s), tw.getvalue()), w.getvalue(), 6, 2
+
+
+@pytest.mark.parametrize("repeat", [False, True], ids=["symbol_and_run", "repeat_and_run"])
+def test_pred_repeat_and_selector_run_in_one_block(repeat):
+    args, payload, nbx, nby = _run_block(repeat)
+    native, plain, jax_stream, oracle = _streams_of_every_frontend(args, nbx, nby, payload)
+    assert native == plain == jax_stream == oracle
+    assert native[0][:4] == [3, 7, 4, 5] and native[1][:3] == [1, 2, 0]
+
+
+def test_symbol_counters():
+    # counted by the C++ slice decoder, added to the recorder's request:
+    # 11-bit codes all resolve in the root; 13-bit delta and selector codes
+    # take a subtable, the 1-bit group symbols do not
+    counted = {}
+    for bits in (11, 13):
+        n = (1 << (bits - 1)) + 1
+        args, payload = _coded_slice(equal_length_sizes(n), equal_length_sizes(n), 10, 6, seed=bits,
+                                     pred_sizes=[0] * 255 + [1])
+        dec = Etc1sDecoder(*args)
+        profiling.clear()
+        profiling.enable()
+        try:
+            with profiling.span("frontend.slice"):
+                dec.decode_slice(10, 6, payload)
+            rec = profiling.records()
+        finally:
+            profiling.disable()
+            profiling.clear()
+        counted[bits] = rec.total("huff_symbols"), rec.total("huff_root_symbols")
+    groups, blocks = 5 * 3, 10 * 6
+    assert counted[11] == (groups + 2 * blocks, groups + 2 * blocks)
+    assert counted[13] == (groups + 2 * blocks, groups)
+    # the plain front-end has no root table and counts nothing
+    profiling.clear()
+    profiling.enable()
+    try:
+        Etc1sDecoder(*args, native=False).decode_slice(10, 6, payload)
+        assert profiling.records() is None or profiling.records().total("huff_symbols") == 0
+    finally:
+        profiling.disable()
+        profiling.clear()
 
 
 # ---------------------------------------------------------------------------

@@ -223,7 +223,8 @@ def test_counters_on_a_cpu_run(recorder, golden):
         assert recorder.records().total("host_syncs") == syncs
     recorder.clear()
     tb.read_to_rgba(buf, device=CPU)  # the front-end checked the indices: no sync
-    assert {name for _request, name in recorder.records().counts} == {"crc_bytes", "crc_fold_bytes"}
+    assert {name for _request, name in recorder.records().counts} == {"crc_bytes", "crc_fold_bytes", "huff_symbols",
+                                                                      "huff_root_symbols"}
     recorder.clear()
     kernels.mode_kernel("bc7", 1)(torch.from_numpy(golden["bc7_in"][:8]), torch.arange(4))
     assert recorder.records().counts == {(None, "host_syncs"): 2}  # the index check's min and max, outside a span
