@@ -170,7 +170,7 @@ def bench_target(target: str, blocks: np.ndarray, device="cuda", reps: int = REP
     gets the time of the same launches with no event between them."""
     timer = timer or partial(event_sequence_ms, preload=True)
     x = torch.from_numpy(np.ascontiguousarray(blocks)).to(device)
-    order, counts = partition(x)
+    ((order, counts),) = partition([x])
     x = x[order]  # grouped by mode, contiguous
     expect = torch.from_numpy(golden_outputs(target, len(blocks))).to(device)[order]
     groups = present_modes(counts)
@@ -280,7 +280,7 @@ def bench_target_sharded(target: str, blocks: np.ndarray, mesh=None, reps: int =
     timer = timer or event_sequence_ms
     mesh = mesh_devices(mesh or make_mesh())
     x = torch.from_numpy(np.ascontiguousarray(blocks)).to(mesh[0])
-    order, counts = partition(x)
+    ((order, counts),) = partition([x])
     x = x[order]
     expect = torch.from_numpy(golden_outputs(target, len(blocks))).to(mesh[0])[order]
     groups = present_modes(counts)

@@ -34,8 +34,8 @@ from enum import IntEnum
 import numpy as np
 import torch
 
-from ..api import BasisError, Image, host_tensor
-from ..ops.dispatch import INVALID_MODE, block_modes
+from ..base import BasisError, Image, host_tensor, to_device
+from ..ops.dispatch import raise_block_error
 from ..parallel.mesh import resolve_mesh, sharded_etc1s_transcode, sharded_transcode
 from ..tables import UASTC_BLOCK_SIZE
 from ..utils.profiling import count, span
@@ -265,21 +265,17 @@ def _check_errs(err: torch.Tensor, blocks: torch.Tensor) -> None:
     """Raise with the reference's message for the FIRST failing block.
 
     The reference's transcode loop (uastc.rs:148-165) aborts read_to_* with
-    the first failing block's own error: "invalid mode index" (uastc.rs:336)
-    or "block pattern is not valid" (uastc.rs:364), the only two per-block
-    Err sites.  The kernels report a flag per block in block order; the
-    message is derived from the first failing block's mode (blocks may lie
-    on another device than err).  Span: `container.error_check`, the wait
-    for the flags."""
+    the first failing block's own error (ops.dispatch.raise_block_error).
+    The kernels report a flag per block in block order (blocks may lie on
+    another device than err).  Span: `container.error_check`, the wait for
+    the flags."""
     with span("container.error_check"):
         count("host_syncs")
         bad = torch.nonzero(err)
         if bad.numel():
             count("host_syncs", 2)
             first = int(bad[0, 0])
-            if int(block_modes(blocks[first : first + 1])[0]) == INVALID_MODE:
-                raise BasisError("invalid mode index")
-            raise BasisError("block pattern is not valid")
+            raise_block_error(blocks[first : first + 1])
 
 
 def _uastc_file(buf: bytes, descs: list[SliceDesc], target: str, mesh: tuple):
@@ -500,11 +496,7 @@ def read_to_uastc(buf: bytes, device="cuda") -> list[Image]:
 
 
 def _payload_copy(host: np.ndarray, device) -> torch.Tensor:
-    """A copy of host bytes on `device`; to another device than the host,
-    under the `parallel.h2d` span and counted in `h2d_bytes`, as
-    api.to_device copies."""
-    if device.type == "cpu":
-        return torch.tensor(host)
-    with span("parallel.h2d"):
-        count("h2d_bytes", host.nbytes)
-        return torch.tensor(host, device=device)
+    """A copy of host bytes on `device` (to_device's), a copy on the CPU
+    too, so that no image holds memory of the caller's bytes."""
+    t = to_device(host_tensor(host), device)
+    return t.clone() if device.type == "cpu" else t

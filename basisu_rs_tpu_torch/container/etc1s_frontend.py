@@ -34,7 +34,7 @@ from pathlib import Path
 
 import numpy as np
 
-from ..api import BasisError
+from ..base import BasisError
 from ..ops import build
 from ..utils.bitio import BitReaderLsb
 from ..utils.profiling import count

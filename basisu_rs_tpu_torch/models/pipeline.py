@@ -15,7 +15,7 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from pathlib import Path
 
-from ..api import BasisError
+from ..base import BasisError
 from ..container import basis as basis_mod
 from ..ops.kernels import TARGETS
 from ..parallel.mesh import resolve_mesh

@@ -16,11 +16,19 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..api import BasisError, _as_blocks, resolve_device
+from ..base import BasisError, block_tensor, resolve_device, to_device
 from ..ops.dispatch import dispatch, partition
 from ..ops.etc1s import run_etc1s_etc1, run_etc1s_rgba
 from ..ops.kernels import TARGETS
 from ..utils.profiling import Profiler, count
+
+
+def _split_rows(out, counts: list) -> list:
+    """out's rows (host numpy or a torch tensor) as consecutive views of
+    `counts` rows each."""
+    if isinstance(out, torch.Tensor):
+        return list(torch.split(out, counts))
+    return np.split(out, np.cumsum(counts)[:-1])
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:
@@ -70,8 +78,8 @@ class UastcTranscoder:
         the partition (one sync); the launches are not waited for."""
         n = int(np.prod(blocks_u8.shape)) // 16
         with self.profiler.stage("host/partition", texels=n * 16):
-            blocks = _as_blocks(blocks_u8, self.device)
-            order, counts = partition(blocks)
+            blocks = to_device(block_tensor(blocks_u8), self.device)
+            ((order, counts),) = partition([blocks])
         with self.profiler.stage("device/dispatch", texels=n * 16):
             out, err = dispatch(blocks, self.target, order, counts)
         return TranscodeResult(n, self.target, out, err)
@@ -101,12 +109,7 @@ class CorpusTranscoder:
         out, err = self.inner.transcode(batch)
         if err.any():
             raise BasisError(f"{int(err.sum())} invalid blocks in corpus batch")
-        outs = []
-        ofs = 0
-        for c in counts:
-            outs.append(out[ofs : ofs + c])
-            ofs += c
-        return outs
+        return _split_rows(out, counts)
 
     @property
     def profiler(self) -> Profiler:
@@ -249,14 +252,9 @@ class Etc1sMultiCorpusTranscoder:
                     out = run_etc1s_etc1(endpoints, selectors, ep, sel, device=self.device)
                 if not resident:
                     out = to_host(out)
-            ofs = k = 0
+            parts = iter(_split_rows(out, counts))
             for fw in group:
-                per_slice = []
-                for _ in fw.slices:
-                    per_slice.append(out[ofs : ofs + counts[k]])
-                    ofs += counts[k]
-                    k += 1
-                out_by_id[id(fw)] = per_slice
+                out_by_id[id(fw)] = [next(parts) for _ in fw.slices]
         return [out_by_id[id(fw)] if fw.slices else [] for fw in files]
 
 
@@ -299,9 +297,4 @@ class Etc1sCorpusTranscoder:
             else:
                 out = run_etc1s_etc1(self.endpoints, self.selectors, ep, sel, device=self.device)
             out = to_host(out)
-        outs = []
-        ofs = 0
-        for c in counts:
-            outs.append(out[ofs : ofs + c])
-            ofs += c
-        return outs
+        return _split_rows(out, counts)

@@ -1,5 +1,5 @@
 """Batch transcode dispatch: mode partition on the device + one kernel launch
-per present UASTC mode.
+per present UASTC mode, over a list of shards.
 
 Port of `basisu_rs_tpu/ops/dispatch.py` for every UASTC target: "bc7",
 "astc", "rgba", "etc1" and "etc2".  The partition runs where the blocks
@@ -14,12 +14,17 @@ before it, which writes other rows and none that it reads.  Blocks of the
 invalid mode 19 come out zero with err set.
 Groups are not padded: the power-of-two buckets of the JAX package only
 bound its recompiles.
+
+A batch is a list of shards, each a uint8 [N_k,16] tensor on its own
+device (`transcode_shards`); one device is the one-shard case
+(`transcode_blocks`), and `parallel/mesh.py` splits a batch over a mesh.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..base import BasisError, on_device, run_shard
 from ..tables import INVALID_MODE, device_tables
 from ..utils.profiling import count, count_elapsed_ns, cuda_mark, span
 from .kernels import CHAINED, OUT_BYTES, TARGETS, mode_kernel
@@ -36,7 +41,17 @@ def block_modes(blocks: torch.Tensor) -> torch.Tensor:
     return lut[(blocks[:, 0] & 0x7F).to(torch.int64)]
 
 
-def mode_groups(blocks: torch.Tensor):
+def raise_block_error(block: torch.Tensor):
+    """Raise the reference's error for a block the kernels flagged (uint8
+    [1,16]): "invalid mode index" (uastc.rs:336) or "block pattern is not
+    valid" (uastc.rs:364), the only two per-block Err sites.  Reads the
+    block's mode back to the host."""
+    if int(block_modes(block)[0]) == INVALID_MODE:
+        raise BasisError("invalid mode index")
+    raise BasisError("block pattern is not valid")
+
+
+def _mode_groups(blocks: torch.Tensor):
     """(order, counts) of uint8 [N,16] blocks, computed where the blocks
     lie: the block indices sorted by mode (stable) and the int64 [20]
     per-mode counts.  On a card, torch.bincount reads the modes' max back
@@ -50,30 +65,38 @@ def mode_groups(blocks: torch.Tensor):
     return order, counts
 
 
-def partition(blocks: torch.Tensor):
-    """mode_groups() with the 20 counts read back to the host (a host sync;
-    mode_groups' bincount is the other).  Spans: `dispatch.groups` (the
-    enqueue, and the bincount's wait), `dispatch.counts` (the wait for the
-    counts); with the recorder on, the card's time for mode_groups' work
-    goes to the `partition_device_ns` counter, read after the counts' own
-    sync."""
+def partition(shards) -> list:
+    """(order, counts) of each uint8 [N_k,16] shard, on the shard's device:
+    the block indices sorted by mode and the 20 per-mode counts read back to
+    the host (a host sync a shard; each bincount's is the other).  Every
+    shard's groups are enqueued before the first count is read, and every
+    count is read before the first launch, so no device waits on another's
+    count read (each bincount's own sync still waits for its shard's modes
+    and sort).  Spans: `dispatch.groups` (the enqueue, and the bincounts'
+    waits), `dispatch.counts` (the wait for the counts); with the recorder
+    on, the card's time for each shard's groups goes to the
+    `partition_device_ns` counter, read after the counts' own sync."""
+    groups, marks = [], []
     with span("dispatch.groups"):
-        start = cuda_mark(blocks.device)
-        order, counts = mode_groups(blocks)
-        end = cuda_mark(blocks.device)
+        for s in shards:
+            with on_device(s.device):
+                start = cuda_mark(s.device)
+                groups.append(_mode_groups(s))
+                marks.append((start, cuda_mark(s.device)))
     with span("dispatch.counts"):
-        count("host_syncs")
-        counts = counts.tolist()
-    count_elapsed_ns("partition_device_ns", start, end)
-    return order, counts
+        count("host_syncs", len(groups))
+        counts = [c.tolist() for _, c in groups]
+    for start, end in marks:
+        count_elapsed_ns("partition_device_ns", start, end)
+    return [(order, c) for (order, _), c in zip(groups, counts)]
 
 
 def dispatch(blocks: torch.Tensor, target: str, order: torch.Tensor, counts, out=None, err=None) -> tuple:
-    """One launch per present mode over partition()'s groups, enqueued
-    without a sync; returns (out, err) as transcode_blocks does.  out
-    (uint8 [N, OUT_BYTES[target]]) and err (bool [N]) are written in place
-    when given, as the kernel wrappers check them, else allocated.  Span:
-    `dispatch.launch`."""
+    """One launch per present mode over one shard's (order, counts) from
+    partition(), enqueued without a sync; returns (out, err) as
+    transcode_blocks does.  out (uint8 [N, OUT_BYTES[target]]) and err
+    (bool [N]) are written in place when given, as the kernel wrappers
+    check them, else allocated.  Span: `dispatch.launch`."""
     with span("dispatch.launch"):
         n = blocks.shape[0]
         if out is None:
@@ -98,6 +121,29 @@ def dispatch(blocks: torch.Tensor, target: str, order: torch.Tensor, counts, out
         return (out.view(torch.uint32) if target == "rgba" else out), err
 
 
+def transcode_shards(shards, target: str, out_device) -> tuple:
+    """Partition and dispatch each uint8 [N_k,16] shard on its device;
+    (out, err) over every shard's rows in shard order, on out_device, as
+    transcode_blocks returns them.  A shard on out_device writes straight
+    into its rows of the result; another is copied there."""
+    check_target(target)
+    groups = partition(shards)
+    # allocated after the partition, whose temporaries are freed by then, so
+    # that they and the result never hold the card's memory at once
+    n = sum(s.shape[0] for s in shards)
+    out = torch.empty(n, OUT_BYTES[target], dtype=torch.uint8, device=out_device)
+    err = torch.empty(n, dtype=torch.bool, device=out_device)
+    a = 0
+    for s, (order, counts) in zip(shards, groups):
+        b = a + s.shape[0]
+        # each dispatch begins with a plain launch, so shards that share a
+        # stream never chain a launch to another shard's
+        run_shard(s.device, (out[a:b], err[a:b]),
+                  lambda o, e, s=s, order=order, counts=counts: dispatch(s, target, order, counts, out=o, err=e))
+        a = b
+    return (out.view(torch.uint32) if target == "rgba" else out), err
+
+
 def transcode_blocks(blocks: torch.Tensor, target: str = "bc7"):
     """uint8 [N,16] UASTC blocks -> (out, err bool [N]) on the blocks'
     device.  out is uint8 [N, OUT_BYTES[target]] block bytes for "bc7",
@@ -106,5 +152,4 @@ def transcode_blocks(blocks: torch.Tensor, target: str = "bc7"):
     kernel's uint8 [N,64] texel rows (little-endian RGBA words, as the JAX
     package's uint32 [N,16]).
     err marks an invalid mode or pattern index."""
-    check_target(target)
-    return dispatch(blocks, target, *partition(blocks))
+    return transcode_shards([blocks], target, blocks.device)

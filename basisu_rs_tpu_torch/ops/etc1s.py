@@ -25,7 +25,10 @@ Outputs are uint8 rows: [N, 64] for the texel kinds, [N, 8] for "etc1".
 `etc1s_kernel(kind)` is the wrapper: a tensor on the CPU goes to the plain
 version below (`PLAIN`), a CUDA tensor to the kernel, or the call raises.
 Each wrapper counts its launches and its plain-version calls.
-`run_etc1s_rgba` and `run_etc1s_etc1` are the entries of the file path.
+`run_etc1s` packs the codebooks and launches a kind over a tuple of
+devices, one launch a shard; `run_etc1s_rgba` and `run_etc1s_etc1` are its
+one-device entries, and `parallel/mesh.py` `sharded_etc1s_transcode` (which
+every ETC1S file read runs) its mesh entry.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..api import resolve_device, to_device
+from ..base import resolve_device, run_shard, shard_bounds, to_device
 from ..tables import device_tables
 from ..utils.profiling import count, span
 from . import build
@@ -278,29 +281,44 @@ def index_tensor(idx, device) -> torch.Tensor:
     return to_device(torch.from_numpy(np.ascontiguousarray(a).reshape(-1)), device)
 
 
+def run_etc1s(kind: str, endpoints, selectors, streams, devices: tuple, check_index: bool = True) -> torch.Tensor:
+    """Decode ETC1S blocks of `kind` (KINDS) over `devices`: the codebooks
+    (endpoints uint8 [E, 4], selectors uint8 [S, 4] row bytes) packed once
+    and copied to every device, the index streams (numpy or torch, the
+    kind's INDEX_BOOKS order) split contiguously over the devices, each
+    shard made uint16 on its device (index_tensor), one launch a shard.
+    Every index is checked against its codebook unless check_index is
+    False.  Returns the uint32 view of the rows on devices[0] in block
+    order: [N, 16] for the texel kinds, [N, 2] for "etc1".  Span:
+    `etc1s.pack` (the packers and the codebooks' copies)."""
+    n = len(streams[0])
+    if any(len(s) != n for s in streams):
+        raise ValueError(f"index streams of different lengths: {[len(s) for s in streams]}")
+    with span("etc1s.pack"):
+        words = (pack_endpoints(endpoints),
+                 selector_wire_words(selectors) if kind == "etc1" else pack_selectors(selectors))
+        books = {d: [codebook_tensor(w, d) for w in words] for d in set(devices)}
+    kernel = etc1s_kernel(kind)
+    out = torch.empty(n, OUT_BYTES[kind], dtype=torch.uint8, device=devices[0])
+    for d, (a, b) in zip(devices, shard_bounds(n, len(devices))):
+        shard = [index_tensor(s[a:b], d) for s in streams]
+        run_shard(d, (out[a:b],), lambda o, d=d, shard=shard: kernel(*books[d], *shard, out=o, check_index=check_index))
+    return out.view(torch.uint32)
+
+
 def run_etc1s_rgba(endpoints, selectors, ep_idx, sel_idx, alpha_pass=None, device="cuda", check_index=True):
     """Decode ETC1S blocks to packed RGBA texels: uint32 [N, 16] (the view
     of uint8 [N, 64] rows) on `device`.  One launch: K6, or K8 when
     alpha_pass = (ep_idx, sel_idx) of the paired alpha slice gives the
-    alpha byte (basis.rs:26-50).  Spans: `etc1s.run`, and `etc1s.pack`
-    (the packers and the codebooks' copies)."""
+    alpha byte (basis.rs:26-50).  Spans: `etc1s.run`, and run_etc1s'."""
     with span("etc1s.run"):
-        device = resolve_device(device)
-        with span("etc1s.pack"):
-            ep_tab = codebook_tensor(pack_endpoints(endpoints), device)
-            sel_tab = codebook_tensor(pack_selectors(selectors), device)
-        idx = [index_tensor(i, device) for i in (ep_idx, sel_idx, *(alpha_pass or ()))]
         kind = "rgba" if alpha_pass is None else "rgba_alpha"
-        return etc1s_kernel(kind)(ep_tab, sel_tab, *idx, check_index=check_index).view(torch.uint32)
+        return run_etc1s(kind, endpoints, selectors, (ep_idx, sel_idx, *(alpha_pass or ())),
+                         (resolve_device(device),), check_index)
 
 
 def run_etc1s_etc1(endpoints, selectors, ep_idx, sel_idx, device="cuda", check_index=True):
     """ETC1S blocks -> ETC1 blocks: uint32 [N, 2] (the view of uint8 [N, 8]
     rows) on `device`, one K9 launch.  Spans as run_etc1s_rgba's."""
     with span("etc1s.run"):
-        device = resolve_device(device)
-        with span("etc1s.pack"):
-            ep_tab = codebook_tensor(pack_endpoints(endpoints), device)
-            wire_tab = codebook_tensor(selector_wire_words(selectors), device)
-        idx = [index_tensor(i, device) for i in (ep_idx, sel_idx)]
-        return etc1s_kernel("etc1")(ep_tab, wire_tab, *idx, check_index=check_index).view(torch.uint32)
+        return run_etc1s("etc1", endpoints, selectors, (ep_idx, sel_idx), (resolve_device(device),), check_index)

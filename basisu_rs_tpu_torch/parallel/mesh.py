@@ -5,25 +5,27 @@ Port of `basisu_rs_tpu/parallel/mesh.py`.  The work is data-parallel
 (blocks and slices are independent; the math needs no collective), so a
 mesh is a 1-D tuple of torch devices and inputs split contiguously over
 the block axis, shard k taking rows [k * per, (k + 1) * per) with per =
-ceil(N / len(mesh)), the rows JAX's padded block-axis sharding gives each
-device.  The only cross-device traffic is each shard's output copied into
-place on mesh[0] and, for the step functions, error counts summed on the
-host.
+ceil(N / len(mesh)) (`base.shard_bounds`), the rows JAX's padded
+block-axis sharding gives each device.  The only cross-device traffic is
+each shard's output copied into place on mesh[0] and, for the step
+functions, error counts summed on the host.
 
-  - `sharded_transcode` (production): each shard runs the port's own mode
-    partition and one launch per present mode (`ops/dispatch.py`) on its
-    device.  Every shard's partition is enqueued before any count is read
-    back, so the devices do not wait on each other's count reads; but on a
-    card each partition's bincount reads the shard's max back to the host
-    (ops/dispatch.py), so the host waits for each shard's modes and sort
-    before it enqueues the next shard's.
+This module names the devices (`make_mesh`, `mesh_devices`,
+`resolve_mesh`), splits the inputs (`shard_blocks`) and opens the
+`parallel.*` root spans; the work over the shards is the one
+implementation the one-device entries run too:
+
+  - `sharded_transcode` (production): `ops/dispatch.py` `transcode_shards`,
+    each shard's mode partition and one launch per present mode on its
+    device.
   - `sharded_transcode_step`: the contract of the JAX step (padded shards
     in, outputs and a global error count out), computed by the same
-    per-shard partition and dispatch; the JAX package's all-modes graph
-    exists only for `jit` and is not ported.
+    `transcode_shards`; the JAX package's all-modes graph exists only for
+    `jit` and is not ported.
   - `sharded_mode_step`: one unindexed launch of one mode's kernel a shard.
-  - `sharded_etc1s_transcode`: the codebooks copied to every device, the
-    index streams split, one K6-K9 launch a shard.
+  - `sharded_etc1s_transcode`: `ops/etc1s.py` `run_etc1s`, the codebooks
+    copied to every device, the index streams split, one K6-K9 launch a
+    shard.
 
 Each shard runs where its device is: the wrappers of `ops/kernels.py` and
 `ops/etc1s.py` launch the hand-written kernel on a CUDA tensor and run the
@@ -38,25 +40,15 @@ through here).
 
 from __future__ import annotations
 
-import contextlib
 import warnings
 
 import torch
 
-from ..api import block_tensor, resolve_device, to_device
-from ..ops.dispatch import check_target, dispatch, mode_groups
-from ..ops.etc1s import (
-    KINDS,
-    OUT_BYTES as ETC1S_OUT_BYTES,
-    codebook_tensor,
-    etc1s_kernel,
-    index_tensor,
-    pack_endpoints,
-    pack_selectors,
-    selector_wire_words,
-)
+from ..base import block_tensor, resolve_device, run_shard, shard_bounds, to_device
+from ..ops.dispatch import check_target, transcode_shards
+from ..ops.etc1s import KINDS, run_etc1s
 from ..ops.kernels import OUT_BYTES, mode_kernel
-from ..utils.profiling import count, count_elapsed_ns, cuda_mark, span
+from ..utils.profiling import count, span
 
 
 def make_mesh(n_devices: int | None = None, *, allow_cpu_fallback: bool = False) -> tuple:
@@ -110,38 +102,13 @@ def resolve_mesh(device, mesh=None) -> tuple:
     """The mesh an entry point runs on: mesh_devices(mesh), or the one
     device `device` names (resolve_device: "cuda" needs a card) when mesh
     is None."""
-    return mesh_devices(mesh) if mesh is not None else mesh_devices((resolve_device(device),))
-
-
-def _bounds(n: int, parts: int) -> list:
-    """(start, end) of each of `parts` contiguous shards of n rows."""
-    per = -(-n // parts)
-    return [(min(k * per, n), min((k + 1) * per, n)) for k in range(parts)]
+    return mesh_devices(mesh) if mesh is not None else (resolve_device(device),)
 
 
 def _shards(t: torch.Tensor, devices) -> list:
     """t's contiguous row shards, each copied from where t lies to its
     device (a view where that is t's own device)."""
-    return [to_device(t[a:b], d) for d, (a, b) in zip(devices, _bounds(t.shape[0], len(devices)))]
-
-
-def _on(device):
-    """Make `device` current for the work enqueued under it (CUDA only)."""
-    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
-
-
-def _run_shard(device, views: tuple, fn) -> None:
-    """Run a shard's fn(*outs) under `device`: outs are `views` (rows of the
-    result on mesh[0]) when the shard lies there, else tensors of their
-    shapes on the shard's device, copied into the views afterwards."""
-    with _on(device):
-        if device == views[0].device:
-            fn(*views)
-            return
-        local = [torch.empty_like(v, device=device) for v in views]
-        fn(*local)
-        for v, t in zip(views, local):
-            v.copy_(t)
+    return [to_device(t[a:b], d) for d, (a, b) in zip(devices, shard_bounds(t.shape[0], len(devices)))]
 
 
 def shard_blocks(blocks, mesh) -> list:
@@ -157,40 +124,6 @@ def shard_blocks(blocks, mesh) -> list:
     return _shards(t, devices)
 
 
-def _transcode_shards(shards: list, target: str, out_device) -> tuple:
-    """Partition and dispatch each shard on its device; (out, err) in block
-    order on out_device, as ops.dispatch.transcode_blocks returns them."""
-    check_target(target)
-    n = sum(s.shape[0] for s in shards)
-    out = torch.empty(n, OUT_BYTES[target], dtype=torch.uint8, device=out_device)
-    err = torch.empty(n, dtype=torch.bool, device=out_device)
-    groups, marks = [], []
-    with span("dispatch.groups"):
-        for s in shards:
-            with _on(s.device):
-                start = cuda_mark(s.device)
-                groups.append(mode_groups(s))
-                marks.append((start, cuda_mark(s.device)))
-    # every partition is enqueued before the first count is read, and every
-    # count is read before the first launch, so no device waits on another's
-    # count read, nor a shard's read on the launches of a shard before it
-    # (each bincount's own sync still waits for its shard's modes and sort)
-    with span("dispatch.counts"):
-        count("host_syncs", len(groups))
-        counts = [c.tolist() for _, c in groups]
-    for start, end in marks:
-        count_elapsed_ns("partition_device_ns", start, end)
-    a = 0
-    for s, (order, _), c in zip(shards, groups, counts):
-        b = a + s.shape[0]
-        # each dispatch begins with a plain launch, so shards that share a
-        # stream never chain a launch to another shard's
-        _run_shard(s.device, (out[a:b], err[a:b]),
-                   lambda o, e, s=s, order=order, c=c: dispatch(s, target, order, c, out=o, err=e))
-        a = b
-    return (out.view(torch.uint32) if target == "rgba" else out), err
-
-
 def sharded_transcode(blocks, target: str, mesh) -> tuple:
     """Production multi-device batch transcode: uint8 [N,16] blocks (numpy
     or torch) -> (out, err) on mesh[0], in block order, with the dtypes and
@@ -200,7 +133,7 @@ def sharded_transcode(blocks, target: str, mesh) -> tuple:
     there.  Span: `parallel.transcode`."""
     with span("parallel.transcode"):
         devices = mesh_devices(mesh)
-        return _transcode_shards(_shards(block_tensor(blocks), devices), target, devices[0])
+        return transcode_shards(_shards(block_tensor(blocks), devices), target, devices[0])
 
 
 def sharded_transcode_step(target: str, mesh):
@@ -214,7 +147,7 @@ def sharded_transcode_step(target: str, mesh):
         if len(shards) != len(devices):
             raise ValueError(f"expected {len(devices)} shards, got {len(shards)}")
         with span("parallel.transcode"):
-            out, err = _transcode_shards(list(shards), target, devices[0])
+            out, err = transcode_shards(list(shards), target, devices[0])
             count("host_syncs")
             return out, int(err.sum())
 
@@ -237,8 +170,8 @@ def sharded_mode_step(target: str, mode_id: int, mesh):
             n = t.shape[0]
             out = torch.empty(n, OUT_BYTES[target], dtype=torch.uint8, device=devices[0])
             err = torch.empty(n, dtype=torch.bool, device=devices[0])
-            for d, shard, (a, b) in zip(devices, _shards(t, devices), _bounds(n, len(devices))):
-                _run_shard(d, (out[a:b], err[a:b]), lambda o, e, shard=shard: kernel(shard, None, o, e))
+            for d, shard, (a, b) in zip(devices, _shards(t, devices), shard_bounds(n, len(devices))):
+                run_shard(d, (out[a:b], err[a:b]), lambda o, e, shard=shard: kernel(shard, None, o, e))
             count("host_syncs")
             return out, err, int(err.sum())
 
@@ -259,26 +192,8 @@ def sharded_etc1s_transcode(kind: str, endpoints, selectors, ep_idx, sel_idx, me
     already checked them, as the file path's front-end does).  Returns the
     uint32 view of the rows on mesh[0] in block order: [N, 16] for the
     texel kinds, [N, 2] for "etc1", the JAX function's shapes.  Spans:
-    `parallel.etc1s`, and `etc1s.pack` (the packers and the codebooks'
-    copies)."""
+    `parallel.etc1s`, and ops.etc1s.run_etc1s'."""
     if kind not in KINDS:
         raise ValueError(f"unknown ETC1S kind {kind!r}; one of {', '.join(KINDS)}")
     with span("parallel.etc1s"):
-        devices = mesh_devices(mesh)
-        # each stream stays where it lies (numpy goes to the host), as uint16
-        streams = [index_tensor(i, i.device if isinstance(i, torch.Tensor) else "cpu")
-                   for i in (ep_idx, sel_idx, *extra_idx)]
-        n = streams[0].shape[0]
-        if any(s.shape[0] != n for s in streams):
-            raise ValueError(f"index streams of different lengths: {[s.shape[0] for s in streams]}")
-        with span("etc1s.pack"):
-            words = (pack_endpoints(endpoints),
-                     selector_wire_words(selectors) if kind == "etc1" else pack_selectors(selectors))
-            books = {d: tuple(codebook_tensor(w, d) for w in words) for d in set(devices)}
-        kernel = etc1s_kernel(kind)
-        out = torch.empty(n, ETC1S_OUT_BYTES[kind], dtype=torch.uint8, device=devices[0])
-        for d, (a, b) in zip(devices, _bounds(n, len(devices))):
-            shard = [to_device(s[a:b], d) for s in streams]
-            _run_shard(d, (out[a:b],),
-                       lambda o, d=d, shard=shard: kernel(*books[d], *shard, out=o, check_index=check_index))
-        return out.view(torch.uint32)
+        return run_etc1s(kind, endpoints, selectors, (ep_idx, sel_idx, *extra_idx), mesh_devices(mesh), check_index)

@@ -28,7 +28,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..api import resolve_device
+from ..base import resolve_device
 from ..ops import bc7_stages
 from ..ops.dispatch import block_modes
 from ..tables import MODES

@@ -145,7 +145,7 @@ def main(argv=None) -> int:
     gin = golden["bc7_in"]
     reps = -(-N_BLOCKS // len(gin))
     full = torch.from_numpy(np.tile(gin, (reps, 1))[:N_BLOCKS]).to(dev)
-    order, counts = partition(full)
+    ((order, counts),) = partition([full])
     starts = np.concatenate([[0], np.cumsum(counts)]).tolist()
     groups = [order[starts[m]:starts[m + 1]] for m in range(19)]
     variants = {d.name: build_variant(d, targets, args.out, dump_modes) for d in args.dirs}

@@ -1021,7 +1021,7 @@ def sharded_phase(dev, card: str, full_np, full, uastc_buf, etc1s_files, endpoin
     from basisu_rs_tpu_torch.ops import etc1s, kernels
     from basisu_rs_tpu_torch.ops.dispatch import dispatch, partition, transcode_blocks
     from basisu_rs_tpu_torch.parallel import make_mesh, sharded_etc1s_transcode, sharded_transcode
-    from basisu_rs_tpu_torch.parallel.mesh import _bounds as bounds
+    from basisu_rs_tpu_torch.base import shard_bounds as bounds
 
     mesh1 = make_mesh(1)
     require(mesh1 == (dev,), f"make_mesh(1) gave {mesh1}")
@@ -1036,7 +1036,7 @@ def sharded_phase(dev, card: str, full_np, full, uastc_buf, etc1s_files, endpoin
         """Device time of the sharded call's launches alone (each shard's
         partition taken beforehand), as the call sends them."""
         shards = [blocks[a:b] for a, b in bounds(blocks.shape[0], n_shards)]
-        parts = [partition(s) for s in shards]
+        parts = partition(shards)
         out = torch.empty(blocks.shape[0], kernels.OUT_BYTES[t], dtype=torch.uint8, device=dev)
         err = torch.empty(blocks.shape[0], dtype=torch.bool, device=dev)
 
@@ -1439,7 +1439,7 @@ def main(argv=None) -> int:
     full_np = tiled_blocks(golden_in)
     full = torch.from_numpy(full_np).to(dev)
     expected_np = {t: np.tile(golden_out[t], (reps, 1))[:N_FULL] for t in TARGETS}
-    order, counts = partition(full)
+    ((order, counts),) = partition([full])
     starts = np.concatenate([[0], np.cumsum(counts)]).tolist()
     groups = {m: order[starts[m] : starts[m + 1]] for m in range(19) if counts[m]}
     results = {}
@@ -1527,7 +1527,7 @@ def main(argv=None) -> int:
         require(bool(torch.equal(p_out, expected)), f"{t} plain version at full size differs from golden")
 
         def plain_path():
-            po, pc = partition(full)
+            ((po, pc),) = partition([full])
             s = 0
             for m, c in enumerate(pc):
                 if c:

@@ -30,8 +30,8 @@ import bench as jax_bench  # the JAX system's bench.py
 import basisu_rs_tpu.container.writer as jax_writer
 import basisu_rs_tpu.models.transcoder as jax_transcoder
 from basisu_rs_tpu_torch import bench
+from basisu_rs_tpu_torch.base import shard_bounds
 from basisu_rs_tpu_torch.ops import etc1s, kernels
-from basisu_rs_tpu_torch.parallel.mesh import _bounds
 from basisu_rs_tpu_torch.tools import bench_etc1s_host as host_tool
 
 _spec = importlib.util.spec_from_file_location("jax_bench_etc1s_host", ROOT / "tools" / "bench_etc1s_host.py")
@@ -294,4 +294,4 @@ def test_a_missing_launch_raises(monkeypatch):
 
 @pytest.mark.parametrize("n,shards", [(1, 3), (4, 3), (5, 3), (700, 3), (608, 8), (0, 2)])
 def test_sharded_launches_count_the_non_empty_shards(n, shards):
-    assert bench.sharded_launches(n, shards) == sum(b > a for a, b in _bounds(n, shards))
+    assert bench.sharded_launches(n, shards) == sum(b > a for a, b in shard_bounds(n, shards))

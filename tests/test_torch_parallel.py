@@ -28,6 +28,7 @@ from basisu_rs_tpu.tables import MODES, np_tables
 from basisu_rs_tpu_torch.api import BasisError
 from basisu_rs_tpu_torch.ops import etc1s, kernels
 from basisu_rs_tpu_torch.ops.dispatch import transcode_blocks
+from basisu_rs_tpu_torch.base import resolve_device
 from basisu_rs_tpu_torch.parallel import (
     make_mesh,
     shard_blocks,
@@ -35,6 +36,7 @@ from basisu_rs_tpu_torch.parallel import (
     sharded_transcode,
     sharded_transcode_step,
 )
+from basisu_rs_tpu_torch.utils import profiling
 from torch_cases import jax_xla
 
 TARGETS = ("bc7", "astc", "rgba", "etc1", "etc2")
@@ -258,6 +260,65 @@ def test_sharded_etc1s_checks_indices(meshes):
         sharded_etc1s_transcode("rgba", endpoints, selectors, idx[0], idx[1][:-1], meshes[3])
     with pytest.raises(ValueError, match="unknown ETC1S kind"):
         sharded_etc1s_transcode("bc7", endpoints, selectors, idx[0], idx[1], meshes[3])
+
+
+# ---------------------------------------------------------------------------
+# one device: the entries are the one-device mesh
+# ---------------------------------------------------------------------------
+
+
+def _recorded(call):
+    """(output, the spans below the root in start order, counter totals) of
+    one call with the recorder on."""
+    profiling.clear()
+    profiling.enable()
+    try:
+        out = call()
+        rec = profiling.records()
+    finally:
+        profiling.disable()
+        profiling.clear()
+    (root,) = [s for s in rec.spans if s.parent is None]
+    below = [s.name for s in sorted(rec.spans, key=lambda s: (s.start_ns, s.id)) if s is not root]
+    return out, (root.name, below), {name: rec.total(name) for _request, name in rec.counts}
+
+
+@pytest.mark.parametrize("fmt", ["uastc-bc7", "etc1s-rgba"])
+def test_one_device_entry_runs_the_one_device_mesh(golden, fmt):
+    """transcode_uastc_blocks / run_etc1s_rgba and sharded_transcode /
+    sharded_etc1s_transcode over (cpu,): the same spans below their roots,
+    in the same order, the same counter totals and equal outputs."""
+    cpu = (torch.device("cpu"),)
+    blocks = golden["bc7_in"]
+    endpoints, selectors, idx = _etc1s_inputs(SEED + 3)
+    entry, mesh = {
+        "uastc-bc7": (lambda: tb.transcode_uastc_blocks(blocks, "bc7", "cpu"),
+                      lambda: sharded_transcode(blocks, "bc7", cpu)),
+        "etc1s-rgba": (lambda: etc1s.run_etc1s_rgba(endpoints, selectors, idx[0], idx[1], device="cpu"),
+                       lambda: sharded_etc1s_transcode("rgba", endpoints, selectors, idx[0], idx[1], cpu)),
+    }[fmt]
+    one_out, (one_root, one_spans), one_counts = _recorded(entry)
+    mesh_out, (mesh_root, mesh_spans), mesh_counts = _recorded(mesh)
+    assert (one_root, mesh_root) == {"uastc-bc7": ("api.transcode", "parallel.transcode"),
+                                     "etc1s-rgba": ("etc1s.run", "parallel.etc1s")}[fmt]
+    assert one_spans == mesh_spans and one_spans
+    assert one_counts == mesh_counts and one_counts["host_syncs"] > 0
+    for a, b in zip(*((o if isinstance(o, tuple) else (o,)) for o in (one_out, mesh_out))):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_resolve_device_names_the_card(monkeypatch):
+    """"cuda" resolves to the current card's index, as a mesh's devices do,
+    so a one-device entry writes its shard's rows in place; without a card
+    it raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    assert resolve_device("cuda") == torch.device("cuda", 1) == pm.resolve_mesh("cuda")[0]
+    assert resolve_device("cuda:0") == torch.device("cuda", 0)
+    assert resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,7 @@ import torch
 
 import basisu_rs_tpu_torch as tb
 import basisu_rs_tpu_torch.container.writer as tw
-from basisu_rs_tpu_torch.api import to_device
+from basisu_rs_tpu_torch.base import to_device
 from basisu_rs_tpu_torch.container import crc
 from basisu_rs_tpu_torch.models import BasisCorpusPipeline, UastcTranscoder
 from basisu_rs_tpu_torch.ops import etc1s, kernels
