@@ -3,9 +3,10 @@
 The JAX package `basisu_rs_tpu` is the reference this port is held against.
 The port carries both source formats of the reference:
   - UASTC, to BC7, ASTC, RGBA, ETC1 and ETC2, for loose blocks and for
-    .basis files: a mode partition on the device and one hand-written
-    sm_90a CUDA kernel launch per UASTC mode and target
-    (`csrc/uastc_{bc7,astc,rgba,etc1,etc2}.cu`);
+    .basis files: hand-written sm_90a CUDA kernels
+    (`csrc/uastc_{bc7,astc,rgba,etc1,etc2}.cu`), for BC7 one launch that
+    groups each tile of blocks by mode in shared memory, for the other
+    targets a mode partition on the device and one launch per UASTC mode;
   - ETC1S/BasisLZ .basis files, to RGBA and ETC1: the host entropy
     front-end (C++, `container/etc1s_frontend.cpp`) and one CUDA kernel
     launch per file (`csrc/etc1s.cu`).

@@ -20,15 +20,13 @@ What each number includes:
 - Per target (BC7, the headline, then RGBA, ASTC, ETC1, ETC2): the golden
   all-mode mix tiled to N blocks, each present mode's blocks gathered
   contiguous on the card, one unindexed launch of that mode's kernel
-  (`ops/kernels.py` `mode_kernel`; K1's launch unchained: a chained launch
-  reads its inputs before it waits on the launch ahead, so its own time is
-  not one launch's).  Device time from CUDA events on a preloaded stream,
-  median of REPS.  The launches of a rep go in sequence with an event
-  between each two (`utils/profiling.event_sequence_ms`): at 2^23 blocks a
-  mode's group (~441,500 blocks, ~14.6 MB in and out) fits in the 50 MB L2,
-  and timing it alone over and over would time a warm cache, which the
-  main path never gives it; in sequence the other modes' 250+ MB go through
-  the L2 in between.  Each rep writes its own output buffers, and every one
+  (`ops/kernels.py` `mode_kernel`).  Device time from CUDA events on a
+  preloaded stream, median of REPS.  The launches of a rep go in sequence
+  with an event between each two (`utils/profiling.event_sequence_ms`): at
+  2^23 blocks a mode's group (~441,500 blocks, ~14.6 MB in and out) fits in
+  the 50 MB L2, and timing it alone over and over would time a warm cache,
+  which the main path never gives it; in sequence the other modes' 250+ MB
+  go through the L2 in between.  Each rep writes its own output buffers, and every one
   is checked against the tiled golden outputs.  The aggregate is blocks x
   16 texels / the sum of the per-mode medians, as in bench.py.
 - ETC1S (rgba K6, rgba_alpha K8, etc1 K9): bench.py's seeded draws, E = S =
@@ -458,8 +456,8 @@ def bench_corpus_device(device="cuda", kernel_rates: dict | None = None, n_files
             return np.concatenate(batches, axis=0)
 
         def dispatch_uastc(batch, check=False):
-            # one mode-partitioned dispatch over every file's blocks (the
-            # corpus layer's cross-file batch): 19 launches a corpus
+            # one dispatch over every file's blocks (the corpus layer's
+            # cross-file batch): one launch a corpus for BC7
             res = tr.transcode_async(batch)
             if check:
                 require(bool(torch.equal(res.out, bc7_golden.repeat(n_files, 1))) and not bool(res.err.any()),

@@ -11,8 +11,9 @@ a mesh (`parallel/mesh.py`): `mesh=` (a device list, `parallel.make_mesh`),
 or the one device `device` names when no mesh is given; when both are
 given, the mesh decides.  A UASTC file's payload of all slices, in slice
 order, splits contiguously over the mesh and goes from the host straight
-to each shard's device, once; each shard pays one partition and at most 19
-launches (`parallel.sharded_transcode`), not that per slice, and the first
+to each shard's device, once; each shard pays one launch for BC7, or one
+partition and at most 19 launches for another target
+(`parallel.sharded_transcode`), not that per slice, and the first
 failing block in slice order is the reference's abort point.  An ETC1S
 file's slices go through the host front-end (C++, `etc1s_frontend.py`) one
 by one, in the reference's order, into one host array of uint16 index

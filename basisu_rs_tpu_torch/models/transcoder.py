@@ -4,9 +4,11 @@ Port of `basisu_rs_tpu/models/transcoder.py`: the surface for corpus-scale
 work, above the block dispatch (`ops/dispatch.py`) and the ETC1S entries
 (`ops/etc1s.py`).  Each class runs on `device="cuda"` unless constructed
 with another device, and raises without a card, as every entry of the port
-does.  Profiler stages keep the JAX package's names; each is host wall
-time around work that may still run on the card, and a span of the
-recorder (utils/profiling.py): "device/dispatch" is the launches' enqueue.
+does.  Profiler stages keep the JAX package's names but for the UASTC
+copy to the device ("host/copy"; the partition, where a target has one,
+runs inside "device/dispatch"); each is host wall time around work that
+may still run on the card, and a span of the recorder
+(utils/profiling.py): "device/dispatch" is the launches' enqueue.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import numpy as np
 import torch
 
 from ..base import BasisError, block_tensor, resolve_device, to_device
-from ..ops.dispatch import dispatch, partition
+from ..ops.dispatch import transcode_shards
 from ..ops.etc1s import run_etc1s_etc1, run_etc1s_rgba
 from ..ops.kernels import TARGETS
 from ..utils.profiling import Profiler, count
@@ -61,8 +63,9 @@ class TranscodeResult:
 
 
 class UastcTranscoder:
-    """Mode-partitioned batch transcoder for UASTC blocks: one launch per
-    present mode over one dense batch, per-stage timings in `.profiler`."""
+    """Batch transcoder for UASTC blocks over one dense batch: BC7 in one
+    launch, another target in one launch per present mode; per-stage
+    timings in `.profiler`."""
 
     def __init__(self, target: str, device="cuda"):
         if target not in TARGETS:
@@ -72,16 +75,16 @@ class UastcTranscoder:
         self.profiler = Profiler()
 
     def transcode_async(self, blocks_u8) -> TranscodeResult:
-        """Copy the batch (numpy or torch uint8 [N, 16]) to the device,
-        partition it by mode and enqueue the launches.  The partition reads
-        its 20 mode counts back to the host, which waits for the copy and
-        the partition (one sync); the launches are not waited for."""
+        """Copy the batch (numpy or torch uint8 [N, 16]) to the device and
+        enqueue its launches (`transcode_shards`): on a card BC7 is one
+        launch with no host read; another target is partitioned by mode
+        first, whose 20 mode counts the host reads back, waiting for the
+        copy and the partition.  The launches are not waited for."""
         n = int(np.prod(blocks_u8.shape)) // 16
-        with self.profiler.stage("host/partition", texels=n * 16):
+        with self.profiler.stage("host/copy", texels=n * 16):
             blocks = to_device(block_tensor(blocks_u8), self.device)
-            ((order, counts),) = partition([blocks])
         with self.profiler.stage("device/dispatch", texels=n * 16):
-            out, err = dispatch(blocks, self.target, order, counts)
+            out, err = transcode_shards([blocks], self.target, blocks.device)
         return TranscodeResult(n, self.target, out, err)
 
     def transcode(self, blocks_u8):
@@ -95,8 +98,9 @@ class CorpusTranscoder:
     """Multi-file / multi-slice (mipmapped) batch pipeline.
 
     Concatenates the blocks of many slices into one batch on the host, so
-    small mip levels ride in the same per-mode launches as base levels (at
-    most 19 a call), then splits the results back per slice."""
+    small mip levels ride in the same launches as base levels (one for BC7,
+    at most 19 for another target), then splits the results back per
+    slice."""
 
     def __init__(self, target: str, device="cuda"):
         self.inner = UastcTranscoder(target, device)

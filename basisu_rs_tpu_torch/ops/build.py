@@ -52,9 +52,11 @@ LAUNCH = {
     "etc1": "uastc_etc1_launch",
     "etc2": "uastc_etc2_launch",
 }
-# target -> C launch entry point that chains its launch to the one ahead of
-# it on the stream (programmatic dependent launch; csrc/uastc_launch.cuh)
-LAUNCH_CHAINED = {"bc7": "uastc_bc7_launch_chained"}
+# target -> C entry point that launches its kernel over blocks of every mode
+# at once (uastc_kernel_tiles<Op>, csrc/uastc_launch.cuh), and the one that
+# reports that kernel's resident warps per SM
+LAUNCH_TILES = {"bc7": "uastc_bc7_launch_tiles"}
+TILES_WARPS = {"bc7": "uastc_bc7_tiles_warps"}
 # target -> C entry point that reports its kernels' resident warps per SM
 WARPS = {t: f"uastc_{t}_warps" for t in LAUNCH}
 # C launch entry point of the ETC1S kernels K6-K9 (csrc/etc1s.cu)
@@ -169,7 +171,7 @@ def load() -> ctypes.CDLL:
     if not so.exists():
         build()
     lib = ctypes.CDLL(str(so))
-    for name in (*LAUNCH.values(), *LAUNCH_CHAINED.values()):
+    for name in LAUNCH.values():
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = [
@@ -185,6 +187,21 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int, ctypes.c_void_p]  # mode, int* warps
+    for name in LAUNCH_TILES.values():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.c_void_p,  # in
+            ctypes.c_int,  # n
+            ctypes.c_void_p,  # out
+            ctypes.c_void_p,  # err
+            ctypes.c_void_p,  # int64 warp-round counter on the card (or None)
+            ctypes.c_void_p,  # stream
+        ]
+    for name in TILES_WARPS.values():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p]  # int* warps
     fn = getattr(lib, ETC1S_LAUNCH)
     fn.restype = ctypes.c_int
     fn.argtypes = [
@@ -226,19 +243,24 @@ _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
 _KERNEL = re.compile(r"uastc_kernel.*\d(Bc7|Astc|Rgba|Etc1|Etc2)ILi(\d+)E")
+_TILE_KERNEL = re.compile(r"uastc_kernel_tilesI.*\d(Bc7|Astc|Rgba|Etc1|Etc2)EE")
 _ETC1S_KERNEL = re.compile(r"etc1s_kernelILi(\d)E")
 _STAGE_KERNEL = re.compile(r"bc7_stage_kernelILi(\d+)ELi(\d)E")
 _PROBE_KERNEL = re.compile(r"fl_div255_probe_kernel")
 
 
 def _kernel_key(name: str):
-    """(target, mode) of a uastc_kernel<Op<M>>, ("etc1s", kind) of an
+    """(target, mode) of a uastc_kernel<Op<M>>, (target, "tiles") of a
+    uastc_kernel_tiles<Op>, ("etc1s", kind) of an
     etc1s_kernel<KIND>, ("bc7_stage/<stage>", mode) of a
     bc7_stage_kernel<M, S>, ("probe", "fl_div255") of the probe, None for
     any other mangled name."""
     k = _KERNEL.search(name)
     if k:
         return k.group(1).lower(), int(k.group(2))
+    k = _TILE_KERNEL.search(name)
+    if k:
+        return k.group(1).lower(), "tiles"
     k = _ETC1S_KERNEL.search(name)
     if k:
         return "etc1s", ETC1S_KINDS[int(k.group(1))]

@@ -1,19 +1,25 @@
-"""Batch transcode dispatch: mode partition on the device + one kernel launch
-per present UASTC mode, over a list of shards.
+"""Batch transcode dispatch over a list of shards: for BC7 on a card one
+launch a shard, for the other targets a mode partition on the device and
+one kernel launch per present UASTC mode.
 
 Port of `basisu_rs_tpu/ops/dispatch.py` for every UASTC target: "bc7",
-"astc", "rgba", "etc1" and "etc2".  The partition runs where the blocks
-are: the mode of every block is MODE_LUT[b0 & 0x7F], a stable argsort
-groups the block indices by mode, and a bincount sizes the groups; on a
-card the bincount reads the modes' max back to the host, one host sync,
-and reading the 20 counts is the other.  Each present mode then gets one launch
-that reads and writes its rows in place through its slice of the sorted
-indices, so there is no gather or scatter pass; for the targets in
-`kernels.CHAINED` (K1) each launch after the first is chained to the one
-before it, which writes other rows and none that it reads.  Blocks of the
-invalid mode 19 come out zero with err set.
-Groups are not padded: the power-of-two buckets of the JAX package only
-bound its recompiles.
+"astc", "rgba", "etc1" and "etc2".
+
+BC7 (`kernels.TILED`): each shard goes to `kernels.tile_kernel("bc7")`,
+whose one launch of `uastc_kernel_tiles<Bc7>` groups each tile of 4,096
+contiguous blocks by mode in shared memory, so there is no index, no
+device-wide sort and no host read; a CPU shard takes the wrapper's plain
+path, the partition below and each present mode's plain version.
+
+The other targets partition where the blocks are: the mode of every block
+is MODE_LUT[b0 & 0x7F], a stable argsort groups the block indices by mode,
+and a bincount sizes the groups; on a card the bincount reads the modes'
+max back to the host, one host sync, and reading the 20 counts is the
+other.  Each present mode then gets one launch that reads and writes its
+rows in place through its slice of the sorted indices, so there is no
+gather or scatter pass.  Blocks of the invalid mode 19 come out zero with
+err set, on either path.  Groups are not padded: the power-of-two buckets
+of the JAX package only bound its recompiles.
 
 A batch is a list of shards, each a uint8 [N_k,16] tensor on its own
 device (`transcode_shards`); one device is the one-shard case
@@ -22,12 +28,14 @@ device (`transcode_shards`); one device is the one-shard case
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 
 from ..base import BasisError, on_device, run_shard
 from ..tables import INVALID_MODE, device_tables
 from ..utils.profiling import count, count_elapsed_ns, cuda_mark, span
-from .kernels import CHAINED, OUT_BYTES, TARGETS, mode_kernel
+from .kernels import OUT_BYTES, TARGETS, TILED, mode_kernel, tile_kernel
 
 
 def check_target(target: str) -> None:
@@ -103,7 +111,7 @@ def dispatch(blocks: torch.Tensor, target: str, order: torch.Tensor, counts, out
             out = torch.empty(n, OUT_BYTES[target], dtype=torch.uint8, device=blocks.device)
         if err is None:
             err = torch.empty(n, dtype=torch.bool, device=blocks.device)
-        start, chain = 0, False
+        start = 0
         for mode, rows in enumerate(counts):
             if rows:
                 idx = order[start : start + rows]
@@ -115,31 +123,43 @@ def dispatch(blocks: torch.Tensor, target: str, order: torch.Tensor, counts, out
                     err.index_fill_(0, idx, True)
                 else:
                     # idx is a slice of the argsort of the N rows: in range by construction
-                    mode_kernel(target, mode)(blocks, idx, out, err, check_index=False, chain=chain)
-                    chain = target in CHAINED
+                    mode_kernel(target, mode)(blocks, idx, out, err, check_index=False)
             start += rows
         return (out.view(torch.uint32) if target == "rgba" else out), err
 
 
+def shard_groups(shards, target: str) -> list:
+    """Each shard's (order, counts) from partition(), or None for every
+    shard of a target in TILED, whose kernel groups its blocks itself."""
+    return [None] * len(shards) if target in TILED else partition(shards)
+
+
+def transcode_shard(shard, target: str, group, out, err) -> None:
+    """One shard into out / err, enqueued: the tile kernel where group is
+    None, else the launches of its partition's (order, counts)."""
+    if group is None:
+        tile_kernel(target)(shard, out, err)
+    else:
+        dispatch(shard, target, *group, out=out, err=err)
+
+
 def transcode_shards(shards, target: str, out_device) -> tuple:
-    """Partition and dispatch each uint8 [N_k,16] shard on its device;
+    """Transcode each uint8 [N_k,16] shard on its device, BC7 through the
+    tile kernel's wrapper, another target by its partition and dispatch;
     (out, err) over every shard's rows in shard order, on out_device, as
     transcode_blocks returns them.  A shard on out_device writes straight
     into its rows of the result; another is copied there."""
     check_target(target)
-    groups = partition(shards)
+    groups = shard_groups(shards, target)
     # allocated after the partition, whose temporaries are freed by then, so
     # that they and the result never hold the card's memory at once
     n = sum(s.shape[0] for s in shards)
     out = torch.empty(n, OUT_BYTES[target], dtype=torch.uint8, device=out_device)
     err = torch.empty(n, dtype=torch.bool, device=out_device)
     a = 0
-    for s, (order, counts) in zip(shards, groups):
+    for s, group in zip(shards, groups):
         b = a + s.shape[0]
-        # each dispatch begins with a plain launch, so shards that share a
-        # stream never chain a launch to another shard's
-        run_shard(s.device, (out[a:b], err[a:b]),
-                  lambda o, e, s=s, order=order, counts=counts: dispatch(s, target, order, counts, out=o, err=e))
+        run_shard(s.device, (out[a:b], err[a:b]), partial(transcode_shard, s, target, group))
         a = b
     return (out.view(torch.uint32) if target == "rgba" else out), err
 

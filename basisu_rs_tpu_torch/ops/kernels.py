@@ -15,12 +15,14 @@ the dispatch does.
 A tensor on the CPU goes to the plain version (`ops/{bc7,astc,rgba,etc}.py`);
 a CUDA tensor goes to the kernel, or the call raises.  Each wrapper counts its
 kernel launches (`launches`) and its plain-version calls (`plain_calls`).
-K1's launches can be chained (`chain=True`, targets in `CHAINED`): the
-launch may start while the one ahead of it on the stream drains, and
-stores nothing before that one has completed (`csrc/uastc_launch.cuh`).  A
-chained launch reads its blocks and index before that wait, so only a
-launch whose inputs no kernel still running writes may be chained; the
-dispatch chains each mode's launch to the one before it.
+
+`tile_kernel(target)(blocks, out, err)` (targets in `TILED`, K1) takes
+blocks of every mode at once: on a card one launch of
+`uastc_kernel_tiles<Op>`, each CTA of which groups its own tile of blocks by
+mode in shared memory and transcodes them in whole warps of one mode; on
+the CPU its plain version, the dispatch's partition and each present mode's
+plain version.  With the recorder on, its kernel adds its warp-rounds to
+the counter `tile_warp_rounds` on the card (`profiling.device_counter`).
 """
 
 from __future__ import annotations
@@ -29,14 +31,14 @@ import ctypes
 
 import torch
 
-from ..utils.profiling import count
+from ..utils.profiling import count, device_counter, span
 from . import astc, bc7, build, etc, rgba
 
 N_MODES = 19
 TARGETS = ("bc7", "astc", "rgba", "etc1", "etc2")
 OUT_BYTES = {"bc7": 16, "astc": 16, "rgba": 64, "etc1": 8, "etc2": 16}
-# the targets whose launches can be chained
-CHAINED = frozenset(build.LAUNCH_CHAINED)
+# the targets whose kernel takes every mode in one launch
+TILED = frozenset(build.LAUNCH_TILES)
 # the plain PyTorch version of each target's launch
 PLAIN = {
     "bc7": bc7.transcode_rows,
@@ -63,6 +65,28 @@ def check_alignment(blocks, out) -> None:
     check_out_alignment(out)
 
 
+def _rows(blocks, out, err, out_bytes: int) -> tuple:
+    """Check that blocks is a contiguous uint8 [N, 16] tensor, allocate out
+    (uint8 [N, out_bytes]) and err (bool [N]) with torch.empty where not
+    given, and check that both are contiguous on the blocks' device;
+    returns (out, err)."""
+    if blocks.dtype != torch.uint8 or blocks.dim() != 2 or blocks.shape[1] != 16:
+        raise ValueError(f"blocks must be uint8 [N, 16], got {blocks.dtype} {tuple(blocks.shape)}")
+    if not blocks.is_contiguous():
+        raise ValueError("blocks must be contiguous")
+    n_rows, dev = blocks.shape[0], blocks.device
+    if out is None:
+        out = torch.empty(n_rows, out_bytes, dtype=torch.uint8, device=dev)
+    if err is None:
+        err = torch.empty(n_rows, dtype=torch.bool, device=dev)
+    if (out.dtype != torch.uint8 or out.shape != (n_rows, out_bytes) or out.device != dev
+            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous uint8 [N, {out_bytes}] tensor on the blocks' device")
+    if err.dtype != torch.bool or err.shape != (n_rows,) or err.device != dev or not err.is_contiguous():
+        raise ValueError("err must be a contiguous bool [N] tensor on the blocks' device")
+    return out, err
+
+
 class ModeKernel:
     """UASTC mode `mode` -> `target`, one launch of `uastc_kernel<Op<mode>>`."""
 
@@ -73,32 +97,16 @@ class ModeKernel:
         self.launches = 0
         self.plain_calls = 0
 
-    def __call__(self, blocks, index=None, out=None, err=None, check_index=True, chain=False):
+    def __call__(self, blocks, index=None, out=None, err=None, check_index=True):
         """Transcode blocks[index] (every row when index is None) into
         out[index] / err[index]; allocates out/err (torch.empty) when not
         given.  Rows outside `index` are left as they were.  Every index
         value must lie in [0, N): checked here unless check_index is False,
         since the kernel reads and writes through the index unchecked.
-        chain=True chains a CUDA launch to the one ahead of it on the stream
-        (targets in CHAINED; see the module docstring for when that is safe).
         Returns (out uint8 [N, out_bytes], err bool [N])."""
-        if chain and self.target not in CHAINED:
-            raise ValueError(f"{self.target} launches cannot be chained; only {', '.join(sorted(CHAINED))} can")
         dev = blocks.device
-        if blocks.dtype != torch.uint8 or blocks.dim() != 2 or blocks.shape[1] != 16:
-            raise ValueError(f"blocks must be uint8 [N, 16], got {blocks.dtype} {tuple(blocks.shape)}")
-        if not blocks.is_contiguous():
-            raise ValueError("blocks must be contiguous")
+        out, err = _rows(blocks, out, err, self.out_bytes)
         n_rows = blocks.shape[0]
-        if out is None:
-            out = torch.empty(n_rows, self.out_bytes, dtype=torch.uint8, device=dev)
-        if err is None:
-            err = torch.empty(n_rows, dtype=torch.bool, device=dev)
-        if (out.dtype != torch.uint8 or out.shape != (n_rows, self.out_bytes) or out.device != dev
-                or not out.is_contiguous()):
-            raise ValueError(f"out must be a contiguous uint8 [N, {self.out_bytes}] tensor on the blocks' device")
-        if err.dtype != torch.bool or err.shape != (n_rows,) or err.device != dev or not err.is_contiguous():
-            raise ValueError("err must be a contiguous bool [N] tensor on the blocks' device")
         if index is not None:
             if index.dtype != torch.int64 or index.dim() != 1 or index.device != dev or not index.is_contiguous():
                 raise ValueError("index must be a contiguous int64 [M] tensor on the blocks' device")
@@ -115,16 +123,16 @@ class ModeKernel:
             self.plain_calls += 1
             PLAIN[self.target](self.mode, blocks, index, out, err)
         elif dev.type == "cuda":
-            self._launch(blocks, index, n, out, err, chain)
+            self._launch(blocks, index, n, out, err)
         else:
             raise ValueError(f"no {self.target} kernel for device {dev}")
         return out, err
 
-    def _launch(self, blocks, index, n, out, err, chain) -> None:
+    def _launch(self, blocks, index, n, out, err) -> None:
         if n >= 2**31:
             raise ValueError(f"{n} blocks exceed one launch (2^31 - 1)")
         check_alignment(blocks, out)
-        launch = getattr(build.load(), (build.LAUNCH_CHAINED if chain else build.LAUNCH)[self.target])
+        launch = getattr(build.load(), build.LAUNCH[self.target])
         with torch.cuda.device(blocks.device):
             stream = torch.cuda.current_stream(blocks.device).cuda_stream
             rc = launch(
@@ -137,17 +145,68 @@ class ModeKernel:
                 stream,
             )
         if rc != 0:
-            raise RuntimeError(f"{self.target} kernel of mode {self.mode}: {'chained ' if chain else ''}launch failed, "
-                               f"cudaError_t {rc}")
+            raise RuntimeError(f"{self.target} kernel of mode {self.mode}: launch failed, cudaError_t {rc}")
+        self.launches += 1
+        count("launches")
+
+
+class TileKernel:
+    """UASTC blocks of every mode -> `target`, one launch of
+    `uastc_kernel_tiles<Op>` on a card (module docstring)."""
+
+    def __init__(self, target: str):
+        self.target = target
+        self.out_bytes = OUT_BYTES[target]
+        self.launches = 0
+
+    def __call__(self, blocks, out=None, err=None):
+        """Transcode every row of blocks into out / err (allocated with
+        torch.empty when not given); returns (out uint8 [N, out_bytes],
+        err bool [N]).  A CPU tensor takes the plain path: the dispatch's
+        partition and each present mode's plain version."""
+        out, err = _rows(blocks, out, err, self.out_bytes)
+        dev = blocks.device
+        if blocks.shape[0] == 0:
+            return out, err
+        if dev.type == "cpu":
+            from . import dispatch  # which imports this module
+
+            ((order, counts),) = dispatch.partition([blocks])
+            dispatch.dispatch(blocks, self.target, order, counts, out=out, err=err)
+        elif dev.type == "cuda":
+            with span("dispatch.launch"):
+                self._launch(blocks, out, err)
+        else:
+            raise ValueError(f"no {self.target} kernel for device {dev}")
+        return out, err
+
+    def _launch(self, blocks, out, err) -> None:
+        n = blocks.shape[0]
+        if n >= 2**31:
+            raise ValueError(f"{n} blocks exceed one launch (2^31 - 1)")
+        check_alignment(blocks, out)
+        rounds = device_counter("tile_warp_rounds", blocks.device)
+        with torch.cuda.device(blocks.device):
+            stream = torch.cuda.current_stream(blocks.device).cuda_stream
+            rc = getattr(build.load(), build.LAUNCH_TILES[self.target])(
+                blocks.data_ptr(), n, out.data_ptr(), err.data_ptr(), None if rounds is None else rounds.data_ptr(),
+                stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.target} tile kernel: launch failed, cudaError_t {rc}")
         self.launches += 1
         count("launches")
 
 
 _KERNELS = {t: tuple(ModeKernel(t, m) for m in range(N_MODES)) for t in TARGETS}
+_TILE_KERNELS = {t: TileKernel(t) for t in TILED}
 
 
 def mode_kernel(target: str, mode: int) -> ModeKernel:
     return _KERNELS[target][mode]
+
+
+def tile_kernel(target: str) -> TileKernel:
+    return _TILE_KERNELS[target]
 
 
 def resident_warps(target: str, mode: int) -> int:
@@ -159,6 +218,21 @@ def resident_warps(target: str, mode: int) -> int:
     if rc != 0:
         raise RuntimeError(f"{target} kernel of mode {mode}: occupancy query failed, cudaError_t {rc}")
     return warps.value
+
+
+def tile_resident_warps(target: str) -> int:
+    """Warps of `target`'s tile kernel resident on one SM of the current
+    card (occupancy calculator, with the kernel's shared memory)."""
+    warps = ctypes.c_int(0)
+    rc = getattr(build.load(), build.TILES_WARPS[target])(ctypes.byref(warps))
+    if rc != 0:
+        raise RuntimeError(f"{target} tile kernel: occupancy query failed, cudaError_t {rc}")
+    return warps.value
+
+
+def tile_launch_counts() -> dict:
+    """{target: launches of its tile kernel}"""
+    return {t: k.launches for t, k in _TILE_KERNELS.items()}
 
 
 def launch_counts() -> dict:
@@ -176,3 +250,5 @@ def reset_counts() -> None:
         for k in ks:
             k.launches = 0
             k.plain_calls = 0
+    for k in _TILE_KERNELS.values():
+        k.launches = 0

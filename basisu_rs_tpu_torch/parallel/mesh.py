@@ -16,8 +16,8 @@ This module names the devices (`make_mesh`, `mesh_devices`,
 implementation the one-device entries run too:
 
   - `sharded_transcode` (production): `ops/dispatch.py` `transcode_shards`,
-    each shard's mode partition and one launch per present mode on its
-    device.
+    for BC7 one tile-kernel launch a shard, for the other targets each
+    shard's mode partition and one launch per present mode, on its device.
   - `sharded_transcode_step`: the contract of the JAX step (padded shards
     in, outputs and a global error count out), computed by the same
     `transcode_shards`; the JAX package's all-modes graph exists only for
@@ -33,8 +33,8 @@ plain version on a CPU tensor, so the JAX package's `mesh_backend` has no
 counterpart.  Shards on mesh[0] write straight into views of the result,
 whose row offsets keep every output row aligned as the kernels require
 (16-byte block rows, output rows of 8, 16 or 64 bytes).  A one-device
-mesh is the single-device path: one copy from the host, one partition,
-the same launches (the file readers of `container/basis.py` always run
+mesh is the single-device path: one copy from the host, the same
+launches (the file readers of `container/basis.py` always run
 through here).
 """
 
@@ -129,8 +129,8 @@ def sharded_transcode(blocks, target: str, mesh) -> tuple:
     or torch) -> (out, err) on mesh[0], in block order, with the dtypes and
     shapes of ops.dispatch.transcode_blocks.  The block axis splits
     contiguously over the mesh; each shard is copied from where the blocks
-    lie straight to its device and runs the port's partition + dispatch
-    there.  Span: `parallel.transcode`."""
+    lie straight to its device and is transcoded there
+    (`transcode_shards`).  Span: `parallel.transcode`."""
     with span("parallel.transcode"):
         devices = mesh_devices(mesh)
         return transcode_shards(_shards(block_tensor(blocks), devices), target, devices[0])

@@ -9,13 +9,12 @@ into its own library, then on the main path's cell (the golden blocks tiled
 to 2^23, partitioned by mode) runs each variant's 19 launches, checks the
 output against the tiled golden outputs, bit-exact, and times each mode's
 launch and the 19 together (device time, median of 10, twice: the
-variants in order, then in reverse).  Where a variant's library exports
-`uastc_<target>_launch_chained`, the 19 launches go as the dispatch sends
-them: the first plain, each later one chained to the one before it; the
-check reads the output after the chain with no synchronize of its own.
-Each mode's own time is one plain (unchained) launch.  Each line gives a
-variant's sums and, per mode, its time, registers, spill-store bytes and
-SASS instructions.
+variants in order, then in reverse).  Each line gives a variant's sums and, per mode, its time, registers, spill-store bytes and
+SASS instructions.  Where a variant's library exports
+`uastc_<target>_launch_tiles` (every mode in one launch), its one launch is
+checked and timed too, on the tiled cell and on the same blocks drawn in a
+seeded random order (the resident benchmark cell's mix), with its
+registers, resident warps per SM and SASS count.
 `--dump 9,13` writes the SASS of those modes' kernels to OUT (default
 `basisu_rs_tpu_torch/build/csrc_ab/`) for reading, and the same SASS
 annotated with the inlined source lines (a second build with -lineinfo,
@@ -82,10 +81,24 @@ def split_functions(lines) -> dict:
     return out
 
 
-def chained_launch(lib, target: str):
-    """The library's chained launch entry of `target`, or None."""
-    name = build.LAUNCH_CHAINED.get(target)
-    return getattr(lib, name) if name is not None and hasattr(lib, name) else None
+def tiles_launch(lib, target: str):
+    """The library's one-launch entry of `target` (bound), or None."""
+    name = build.LAUNCH_TILES.get(target)
+    if name is None or not hasattr(lib, name):
+        return None
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    return fn
+
+
+def tiles_warps(lib, target: str) -> int | None:
+    """Resident warps per SM of the library's tile kernel of `target`."""
+    name = build.TILES_WARPS.get(target)
+    if name is None or not hasattr(lib, name):
+        return None
+    warps = ctypes.c_int(0)
+    return warps.value if getattr(lib, name)(ctypes.byref(warps)) == 0 else None
 
 
 def build_variant(src: Path, targets, out: Path, dump_modes):
@@ -117,12 +130,10 @@ def build_variant(src: Path, targets, out: Path, dump_modes):
             (out / f"sass_{src.name}_{t}_{m}.txt").write_text("".join(lines))
     lib = ctypes.CDLL(str(so))
     for t in targets:
-        for fn in (getattr(lib, build.LAUNCH[t]), chained_launch(lib, t)):
-            if fn is None:
-                continue
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_void_p]
+        fn = getattr(lib, build.LAUNCH[t])
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p]
     return lib, build.parse_ptxas(log), counts
 
 
@@ -146,6 +157,8 @@ def main(argv=None) -> int:
     reps = -(-N_BLOCKS // len(gin))
     full = torch.from_numpy(np.tile(gin, (reps, 1))[:N_BLOCKS]).to(dev)
     ((order, counts),) = partition([full])
+    draw = torch.from_numpy(np.random.default_rng(0).integers(0, N_BLOCKS, N_BLOCKS)).to(dev)
+    shuffled = full[draw].contiguous()
     starts = np.concatenate([[0], np.cumsum(counts)]).tolist()
     groups = [order[starts[m]:starts[m + 1]] for m in range(19)]
     variants = {d.name: build_variant(d, targets, args.out, dump_modes) for d in args.dirs}
@@ -161,35 +174,56 @@ def main(argv=None) -> int:
         out = torch.zeros(N_BLOCKS, ob, dtype=torch.uint8, device=dev)
         err = torch.zeros(N_BLOCKS, dtype=torch.bool, device=dev)
         runs: dict = {}
+        tile_runs: dict = {}
         for names in (list(variants), list(reversed(variants))):
             for name in names:
                 lib = variants[name][0]
-                plain = getattr(lib, build.LAUNCH[t])
-                chained = chained_launch(lib, t) or plain
+                launch = getattr(lib, build.LAUNCH[t])
 
-                def go(m, chain=False, name=name, plain=plain, chained=chained):
-                    rc = (chained if chain else plain)(m, full.data_ptr(), groups[m].data_ptr(), groups[m].shape[0],
-                                                       out.data_ptr(), err.data_ptr(), stream)
+                def go(m, name=name, launch=launch):
+                    rc = launch(m, full.data_ptr(), groups[m].data_ptr(), groups[m].shape[0], out.data_ptr(),
+                                err.data_ptr(), stream)
                     if rc:
                         raise RuntimeError(f"{name} {t} mode {m}: launch failed, cudaError_t {rc}")
 
                 def all19():
                     for m in range(19):
-                        go(m, chain=m > 0)
+                        go(m)
 
                 out.zero_()
                 all19()
                 if not torch.equal(out, expected) or bool(err.any()):
                     raise RuntimeError(f"{name} {t}: output differs from the tiled golden outputs")
                 runs.setdefault(name, []).append((med(all19), [med(lambda m=m: go(m)) for m in range(19)]))
+                tiles = tiles_launch(lib, t)
+                if tiles is not None:
+                    times = []
+                    for x, want in ((full, expected), (shuffled, expected[draw])):
+                        def one(x=x, tiles=tiles, name=name):
+                            rc = tiles(x.data_ptr(), x.shape[0], out.data_ptr(), err.data_ptr(), None, stream)
+                            if rc:
+                                raise RuntimeError(f"{name} {t} tiles: launch failed, cudaError_t {rc}")
+
+                        out.zero_()
+                        one()
+                        if not torch.equal(out, want) or bool(err.any()):
+                            raise RuntimeError(f"{name} {t} tiles: output differs from the golden outputs")
+                        times.append(med(one))
+                    tile_runs.setdefault(name, []).append(times)
         for name, r in runs.items():
             _, ptxas, sass = variants[name]
             per_mode = np.mean([ms for _, ms in r], axis=0)
-            kind = "chained" if chained_launch(variants[name][0], t) else "plain"
-            print(f"{t} {name}: 19 launches ({kind}) {' / '.join(f'{s:.4f}' for s, _ in r)} ms, unchained per-mode "
-                  f"sum {per_mode.sum():.4f} ms; mode:ms (one plain launch)/registers/spill bytes/SASS "
+            print(f"{t} {name}: 19 launches {' / '.join(f'{s:.4f}' for s, _ in r)} ms, per-mode "
+                  f"sum {per_mode.sum():.4f} ms; mode:ms (one launch)/registers/spill bytes/SASS "
                   + " ".join(f"{m}:{per_mode[m]:.4f}/{ptxas[(t, m)]['registers']}/{ptxas[(t, m)]['spill_stores']}/"
                              f"{sass[(t, m)]}" for m in range(19)))
+        for name, r in tile_runs.items():
+            _, ptxas, sass = variants[name]
+            reg = ptxas.get((t, "tiles"), {})
+            print(f"{t} {name} tiles: one launch, tiled cell {' / '.join(f'{a:.4f}' for a, _ in r)} ms, shuffled "
+                  f"{' / '.join(f'{b:.4f}' for _, b in r)} ms; {reg.get('registers')} registers, "
+                  f"{reg.get('spill_stores')} B spill stores, {tiles_warps(variants[name][0], t)} warps/SM, "
+                  f"{sass.get((t, 'tiles'))} SASS")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
     return 0

@@ -5,7 +5,8 @@ Port of `basisu_rs_tpu/utils/profiling.py`, plus the recorder.
 
 The recorder: `span(name)` around the work of each layer, `count(name, n)`
 at the sites that do countable work (kernel launches, host syncs, bytes
-copied from the host).  It is off until `enable()`; off, `span` returns
+copied from the host); a kernel counts on the card into `device_counter`,
+which `records()` reads into its counter.  It is off until `enable()`; off, `span` returns
 one shared no-op context manager and `count` returns at once.  On, each
 span records its name, start and end (`time.perf_counter_ns`), the span
 that opened it and the request it belongs to: a span opened on a thread
@@ -195,6 +196,37 @@ def count_elapsed_ns(name: str, start, end) -> None:
         _FREE_MARKS.setdefault(device, []).extend((first, last))
 
 
+_DEVICE_COUNTERS: dict = {}  # (counter name, torch.device) -> int64 [1] tensor kernels add to
+
+
+def device_counter(name: str, device):
+    """With the recorder on and `device` a card: the int64 [1] tensor on the
+    card that kernels add counter `name`'s counts to (made at first use),
+    read into the counter, outside any request, by records().  Otherwise
+    None, and the kernel counts nothing."""
+    if not _ON or device.type != "cuda":
+        return None
+    with _LOCK:
+        counter = _DEVICE_COUNTERS.get((name, device))
+        if counter is None:
+            counter = _DEVICE_COUNTERS[(name, device)] = torch.zeros(1, dtype=torch.int64, device=device)
+    return counter
+
+
+def _read_device_counters() -> None:
+    """Add each device counter's count to its counter (request None) and
+    zero it: one host read a counter, which waits for the kernels that add
+    to it."""
+    with _LOCK:
+        counters = list(_DEVICE_COUNTERS.items())
+    for (name, _device), counter in counters:
+        n = int(counter.item())
+        counter.zero_()
+        if n:
+            with _LOCK:
+                _COUNTS[(None, name)] = _COUNTS.get((None, name), 0) + n
+
+
 def enable() -> None:
     """Turn the recorder on."""
     global _ON
@@ -208,16 +240,20 @@ def disable() -> None:
 
 
 def records() -> Records:
-    """A copy of every span closed and every counter added since clear()."""
+    """A copy of every span closed and every counter added since clear(),
+    the device counters read in first."""
+    _read_device_counters()
     with _LOCK:
         return Records(list(_SPANS), dict(_COUNTS))
 
 
 def clear() -> None:
-    """Drop every record."""
+    """Drop every record, and zero the device counters."""
     with _LOCK:
         _SPANS.clear()
         _COUNTS.clear()
+        for counter in _DEVICE_COUNTERS.values():
+            counter.zero_()
 
 
 @dataclass

@@ -8,9 +8,10 @@ ETC1, for index streams and for .basis files).
 Phases, each printing its own lines; any failure raises and exits non-zero:
   1. card facts (nvidia-smi name and power limit, torch and CUDA versions);
   2. nvcc build of csrc/*.cu for sm_90a (one nvcc per source, in parallel),
-     with seconds and the ptxas register/spill report of all 200 kernels
-     (K1 BC7, K2 ASTC, K3 RGBA, K4 ETC1, K5 ETC2, x 19 UASTC modes; K6-K9,
-     the four ETC1S kinds; the 100 T1 stage kernels; the probe P); for K1-K5
+     with seconds and the ptxas register/spill report of all 201 kernels
+     (K1 BC7, K2 ASTC, K3 RGBA, K4 ETC1, K5 ETC2, x 19 UASTC modes; K1's
+     tile kernel; K6-K9, the four ETC1S kinds; the 100 T1 stage kernels;
+     the probe P); for K1-K5
      per mode also the resident warps per SM (the CUDA runtime's occupancy
      calculator) and the static SASS instruction count (cuobjdump -sass of
      the built library), and 0 B of spills required of K1-K5;
@@ -24,15 +25,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   5. the BC7 main path at full size: 2^23 device-resident blocks of the
      golden all-mode mix through `transcode_uastc_blocks`, checked against
      the tiled golden outputs, with launch counters that must show one
-     launch per mode and no plain-version call; then CUDA-event timings of
-     the whole call, of the 19 launches alone (as the dispatch sends them,
-     K1's chained after the first; as called, and device time with the
-     stream preloaded), of each mode's kernel on its group (one plain
-     launch, device time; their sum beside the 19 launches' span), and of
-     the plain version at the same size (as called).  The call's output and
-     err, and the output of the 19 launches alone, are checked with no
-     synchronize before the check, so a chained launch that completed ahead
-     of the one before it would show as a mismatch;
+     tile-kernel launch (phases 8 and 12: one launch per mode) and no
+     plain-version call; then CUDA-event timings of the whole call, of its
+     one tile-kernel launch (device time), of the per-mode path's 19
+     launches alone (as the dispatch sends another target's; as called, and
+     device time with the stream preloaded), of each mode's kernel on its
+     group (one launch, device time; their sum beside the 19 launches'
+     span), and of the plain version at the same size (as called).  The
+     call's output and err, and the output of the 19 launches alone, are
+     checked with no synchronize before the check;
   6. as phase 3, for the ASTC and RGBA kernels;
   7. the golden corpus to ASTC and RGBA through the API on the card, and the
      invalid-mode and invalid-pattern blocks through the block functions,
@@ -137,10 +138,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      a timeout: exit code 0, a last line that parses with every key of the
      JAX system's bench.py line but vs_baseline (`bench.LINE_KEYS`) and
      `device`, every rate finite and above 0, `device.name` the card's
-     name; the line and the bench's stderr are printed.
-Phases 17-25 print their seconds.  `python3 chip_smoke.py --phase 24`
-(or `--phase 25`) runs phase 1, the build and that phase alone, phase 24
-on inputs built as the full run builds them.
+     name; the line and the bench's stderr are printed;
+ 26. K1 in one launch (`kernels.tile_kernel("bc7")`, uastc_kernel_tiles<Bc7>)
+     against the per-mode path (the partition and 19 launches), out and err
+     byte for byte, on 2^23 blocks of the resident cell's shuffled mix, a
+     mix of runs of one mode, 2^23 - 7 shuffled blocks and a shuffled batch
+     with invalid-mode, invalid-pattern and random blocks; for each its
+     device time beside the 33-byte HBM bound and the per-mode path's
+     launches, the whole call, its warp-rounds and lane share (the
+     recorder's `tile_warp_rounds`); then phase 5's tiled golden mix
+     (== golden), the per-mode kernels over contiguous blocks of one mode
+     (phase 23's measure), and the kernel's registers, resident warps and
+     SASS count.
+Phases 17-26 print their seconds.  `python3 chip_smoke.py --phase 24`
+(or `--phase 25`, `--phase 26`) runs phase 1, the build and that phase
+alone, phase 24 on inputs built as the full run builds them.
 The last two lines before the final one are a JSON line of per-kernel
 results and the card's name and power limit; the final line is the
 `{"ok": true, "device": ...}` result.  Imports torch, numpy and
@@ -200,6 +212,25 @@ BENCH_TIMEOUT_S = 600  # phase 25's subprocess
 def require(cond, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def check_launches(kernels, t: str, calls: int, label: str) -> tuple:
+    """Require the launches since kernels.reset_counts() of `calls` calls of
+    target t's main path: one tile-kernel launch a call and no per-mode
+    launch for a target in kernels.TILED (BC7), else one launch per mode a
+    call; returns (launches of each mode's kernel [19], tile-kernel
+    launches)."""
+    modes, tiles = kernels.launch_counts()[t], kernels.tile_launch_counts().get(t, 0)
+    want = ([0] * 19, calls) if t in kernels.TILED else ([calls] * 19, 0)
+    require((modes, tiles) == want, f"{label} {t}: launches per mode {modes}, tile-kernel launches {tiles}, "
+                                    f"expected {want}")
+    return modes, tiles
+
+
+def launch_text(kernels, t: str, counted: tuple) -> str:
+    """check_launches' (per-mode, tile-kernel) counts as the phases print them."""
+    modes, tiles = counted
+    return f"tile-kernel launches {tiles}" if t in kernels.TILED else f"launches per mode {modes}"
 
 
 def card_facts() -> str:
@@ -823,16 +854,18 @@ def corpus_phase(dev, card: str, full_np, full, kernels, etc1s) -> None:
         ref = to_host(transcode_uastc_blocks(full[:total], t)[0])
         kernels.reset_counts()
         outs = CorpusTranscoder(t).transcode_slices(slices)
-        n_launch = sum(kernels.launch_counts()[t])
+        n_launch = sum(kernels.launch_counts()[t]) + kernels.tile_launch_counts().get(t, 0)
         plain_calls = sum(sum(c) for c in kernels.plain_call_counts().values())
-        require(n_launch <= 19 and plain_calls == 0, f"corpus {t}: {n_launch} launches, {plain_calls} plain calls")
+        require(n_launch <= (1 if t in kernels.TILED else 19) and plain_calls == 0,
+                f"corpus {t}: {n_launch} launches, {plain_calls} plain calls")
         require(all(np.array_equal(o, ref[a:b]) for o, a, b in zip(outs, ends, ends[1:])),
                 f"corpus {t}: a slice differs from transcode_uastc_blocks")
         tr = UastcTranscoder(t)
         kernels.reset_counts()
         out, err = tr.transcode_async(full_np[:total]).gather()
-        n_async = sum(kernels.launch_counts()[t])
-        require(n_async <= 19 and np.array_equal(out, ref) and not err.any(), f"transcode_async {t} differs")
+        n_async = sum(kernels.launch_counts()[t]) + kernels.tile_launch_counts().get(t, 0)
+        require(n_async <= (1 if t in kernels.TILED else 19) and np.array_equal(out, ref) and not err.any(),
+                f"transcode_async {t} differs")
         print(f"phase 20 corpus {t} [{card}]: {len(slices)} mip slices of {textures} {width}x{width} textures, {total} blocks, "
               f"CorpusTranscoder and transcode_async + gather bit-exact vs transcode_uastc_blocks; launches "
               f"{n_launch} and {n_async} a call; plain-version calls 0")
@@ -1019,7 +1052,7 @@ def sharded_phase(dev, card: str, full_np, full, uastc_buf, etc1s_files, endpoin
     from basisu_rs_tpu_torch.__main__ import main as cli_main
     from basisu_rs_tpu_torch.container.writer import write_uastc_basis
     from basisu_rs_tpu_torch.ops import etc1s, kernels
-    from basisu_rs_tpu_torch.ops.dispatch import dispatch, partition, transcode_blocks
+    from basisu_rs_tpu_torch.ops.dispatch import shard_groups, transcode_blocks, transcode_shard
     from basisu_rs_tpu_torch.parallel import make_mesh, sharded_etc1s_transcode, sharded_transcode
     from basisu_rs_tpu_torch.base import shard_bounds as bounds
 
@@ -1034,15 +1067,16 @@ def sharded_phase(dev, card: str, full_np, full, uastc_buf, etc1s_files, endpoin
 
     def shard_launches_ms(blocks, t, n_shards):
         """Device time of the sharded call's launches alone (each shard's
-        partition taken beforehand), as the call sends them."""
+        partition, where the target has one, taken beforehand), as the call
+        sends them."""
         shards = [blocks[a:b] for a, b in bounds(blocks.shape[0], n_shards)]
-        parts = partition(shards)
+        groups = shard_groups(shards, t)
         out = torch.empty(blocks.shape[0], kernels.OUT_BYTES[t], dtype=torch.uint8, device=dev)
         err = torch.empty(blocks.shape[0], dtype=torch.bool, device=dev)
 
         def run():
-            for (a, b), s, (order, counts) in zip(bounds(blocks.shape[0], n_shards), shards, parts):
-                dispatch(s, t, order, counts, out=out[a:b], err=err[a:b])
+            for (a, b), s, group in zip(bounds(blocks.shape[0], n_shards), shards, groups):
+                transcode_shard(s, t, group, out[a:b], err[a:b])
 
         return median_ms(run, preload=True)
 
@@ -1053,9 +1087,8 @@ def sharded_phase(dev, card: str, full_np, full, uastc_buf, etc1s_files, endpoin
         kernels.reset_counts()
         out, err = sharded_transcode(blocks, t, mesh)
         torch.cuda.synchronize()
-        launches = kernels.launch_counts()[t]
+        launches = launch_text(kernels, t, check_launches(kernels, t, launches_each, label))
         plain_calls = sum(sum(c) for c in kernels.plain_call_counts().values())
-        require(launches == [launches_each] * 19, f"{label} {t}: launch counts {launches}")
         require(plain_calls == 0, f"{label} {t}: plain version called on the sharded path: {plain_calls}")
         require(out.dtype == ref_out.dtype and out.shape == ref_out.shape and out.device == dev,
                 f"{label} {t}: output {out.dtype} {tuple(out.shape)} {out.device}")
@@ -1098,10 +1131,10 @@ def sharded_phase(dev, card: str, full_np, full, uastc_buf, etc1s_files, endpoin
                                     lambda: sharded_transcode(blocks_b, "bc7", four))
     print(f"phase 24 [cuda:0] x 4 [{card}]: {n_b} blocks in shards of {per} and {n_b - 3 * per}, invalid mode at "
           f"{i_mode} (third shard), invalid pattern at {i_pat} (fourth); out and err == the single-device path for "
-          f"{', '.join(TARGETS)} (tolerance 0), err exactly at those rows, 4 launches a mode, 0 plain calls; bc7 whole "
-          f"call single-device {s1:.4f} / {s2:.4f} ms, four shards {m1:.4f} / {m2:.4f} ms; the 76 launches' device "
-          f"time {shard_launches_ms(blocks_b, 'bc7', 4):.4f} ms against {shard_launches_ms(blocks_b, 'bc7', 1):.4f} ms "
-          f"for the 19 of one shard")
+          f"{', '.join(TARGETS)} (tolerance 0), err exactly at those rows, 4 launches a mode (bc7: 4 tile-kernel "
+          f"launches), 0 plain calls; bc7 whole call single-device {s1:.4f} / {s2:.4f} ms, four shards {m1:.4f} / "
+          f"{m2:.4f} ms; the 4 launches' device time {shard_launches_ms(blocks_b, 'bc7', 4):.4f} ms against "
+          f"{shard_launches_ms(blocks_b, 'bc7', 1):.4f} ms for the one of one shard")
     del blocks_b
     slice_blocks = SLICE_BLOCKS_X * SLICE_BLOCKS_X
     for order, msg in (((i_mode, bad[0]), (i_pat, bad[1])), "invalid mode index"), \
@@ -1176,8 +1209,7 @@ def sharded_phase(dev, card: str, full_np, full, uastc_buf, etc1s_files, endpoin
             images = fn(buf, mesh=mesh)
             torch.cuda.synchronize()
             if label.startswith("uastc"):
-                launched = kernels.launch_counts()[reader]
-                require(launched == [len(mesh)] * 19, f"{label} read_to_{reader} on {name}: launches {launched}")
+                check_launches(kernels, reader, len(mesh), f"{label} read_to_{reader} on {name}")
             else:
                 kind = "rgba_alpha" if reader == "rgba" and label == "etc1s alpha" else reader
                 launched = etc1s.launch_counts()
@@ -1255,6 +1287,117 @@ def bench_phase(card: str) -> None:
     print("phase 25 bench line " + json.dumps(line))
 
 
+def tile_phase(dev, card: str, golden_in, golden_out) -> None:
+    """Phase 26: K1 in one launch (`kernels.tile_kernel("bc7")`, the kernel
+    uastc_kernel_tiles<Bc7>) against the per-mode path (the partition and 19
+    launches), byte for byte with the err flags, on N_FULL blocks of four
+    mixes, and on the first mix also against the plain version (the
+    partition and each mode's `bc7.transcode_rows`); then its device time
+    beside the HBM bound and the per-mode kernels' time over contiguous
+    blocks, its registers, resident warps and lane share."""
+    from basisu_rs_tpu_torch.ops import build, kernels
+    from basisu_rs_tpu_torch.ops.dispatch import block_modes, dispatch, partition, transcode_blocks
+    from basisu_rs_tpu_torch.tables import INVALID_MODE
+    from basisu_rs_tpu_torch.utils import profiling
+
+    rng = np.random.default_rng(SEED + 26)
+    golden = torch.from_numpy(golden_in).to(dev)
+    modes = block_modes(golden)
+    shuffled = golden_in[rng.integers(0, len(golden_in), N_FULL)]  # the resident cell's mix
+    by_mode = [golden_in[modes.cpu().numpy() == m] for m in range(19)]
+    run_modes = rng.integers(0, 19, N_FULL // 64)
+    run_lengths = rng.integers(1, 2048, len(run_modes))  # runs of one mode, 1-2047 blocks
+    runs = np.concatenate([by_mode[m][rng.integers(0, len(by_mode[m]), k)] for m, k in zip(run_modes, run_lengths)])
+    require(len(runs) >= N_FULL, "runs mix too short")
+    bad = invalid_blocks()
+    faulty = shuffled.copy()
+    faulty[::97], faulty[5::89] = bad[0], bad[1]
+    faulty[-N_RANDOM:] = rng.integers(0, 256, (N_RANDOM, 16), dtype=np.uint8)  # every mode, random patterns
+    mixes = {"shuffled": shuffled, "runs": runs[:N_FULL], f"shuffled, {N_FULL - 7} blocks": shuffled[: N_FULL - 7],
+             "invalid mode / pattern": faulty}
+    tile = kernels.tile_kernel("bc7")
+    for name, x_np in mixes.items():
+        x = torch.from_numpy(np.ascontiguousarray(x_np)).to(dev)
+        n = x.shape[0]
+        out, err = tile(x)  # warm-up, and the shared memory attribute
+        ((order, counts),) = partition([x])
+        ref_out, ref_err = dispatch(x, "bc7", order, counts)
+        kernels.reset_counts()
+        out, err = tile(x)
+        require(kernels.tile_launch_counts()["bc7"] == 1 and sum(kernels.launch_counts()["bc7"]) == 0,
+                f"tile {name}: launches {kernels.tile_launch_counts()}, per mode {kernels.launch_counts()['bc7']}")
+        require(bool(torch.equal(out, ref_out)) and bool(torch.equal(err, ref_err)),
+                f"tile {name}: one launch differs from the 19-launch path "
+                f"({int((out != ref_out).any(1).sum())} rows, {int((err != ref_err).sum())} err flags)")
+        if name == "shuffled":
+            require(not bool(err.any()) and counts[INVALID_MODE] == 0, "tile: the golden mix flagged err")
+            p_out, p_err = torch.empty_like(out), torch.empty_like(err)
+            s = 0
+            for m, c in enumerate(counts[:INVALID_MODE]):
+                if c:
+                    kernels.PLAIN["bc7"](m, x, order[s : s + c], p_out, p_err)
+                s += c
+            require(bool(torch.equal(out, p_out)) and bool(torch.equal(err, p_err)),
+                    f"tile {name}: one launch differs from the plain version "
+                    f"({int((out != p_out).any(1).sum())} rows, {int((err != p_err).sum())} err flags)")
+            del p_out, p_err
+        profiling.clear()
+        profiling.enable()
+        try:
+            tile(x)
+            rounds = profiling.records().total("tile_warp_rounds")
+        finally:
+            profiling.disable()
+            profiling.clear()
+        lanes = 100 * n / (32 * rounds)
+        ms = median_ms(lambda: tile(x), preload=True)
+        idx = [order[a:b] for a, b in zip(np.cumsum([0] + counts[:-1]).tolist(), np.cumsum(counts).tolist())]
+
+        def per_mode():
+            for m in range(19):
+                if counts[m]:
+                    kernels.mode_kernel("bc7", m)(x, idx[m], ref_out, ref_err, check_index=False)
+
+        per_mode_ms = median_ms(per_mode, preload=True)
+        call_ms = median_ms(lambda: transcode_blocks(x, "bc7"))
+        bound = n * 33 / HBM_BYTES_PER_S * 1e3
+        plain_too = " and the plain version" if name == "shuffled" else ""
+        print(f"phase 26 tile {name} [{card}]: {n} blocks ({int(err.sum())} with err), one launch == the 19-launch "
+              f"path{plain_too} (out and err, tolerance 0); device time {ms:.4f} ms = {mtex(n, ms):.1f} Mtexels/s, "
+              f"HBM bound "
+              f"{bound:.4f} ms (33 B a block, {100 * bound / ms:.1f}%); the per-mode path's launches "
+              f"{per_mode_ms:.4f} ms; transcode_blocks as called {call_ms:.4f} ms; warp-rounds {rounds}, lane share "
+              f"{lanes:.2f}%")
+        del x, out, err, ref_out, ref_err, order, idx
+        torch.cuda.empty_cache()
+
+    # the per-mode kernels over contiguous blocks of one mode, as phase 23 times them
+    k_out = torch.empty(N_FULL, 16, dtype=torch.uint8, device=dev)
+    k_err = torch.empty(N_FULL, dtype=torch.bool, device=dev)
+    contiguous = 0.0
+    for m in range(19):
+        small = golden[modes == m]
+        blocks = small.repeat(-(-N_FULL // small.shape[0]), 1)[:N_FULL].contiguous()
+        k = kernels.mode_kernel("bc7", m)
+        k(blocks, None, k_out, k_err)
+        contiguous += median_ms(lambda: k(blocks, None, k_out, k_err), preload=True)
+        del blocks
+    tiled = torch.from_numpy(tiled_blocks(golden_in)).to(dev)
+    out, err = tile(tiled)
+    expected = np.tile(golden_out, (-(-N_FULL // len(golden_in)), 1))[:N_FULL]
+    require(bool(torch.equal(out, torch.from_numpy(expected).to(dev))) and not bool(err.any()),
+            "tile: phase 5's tiled golden mix differs from the golden outputs")
+    tiled_ms = median_ms(lambda: tile(tiled), preload=True)
+    r = build.ptxas_report().get(("bc7", "tiles"), {})
+    require(r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0, f"tile kernel spills or no report: {r}")
+    sass = build.sass_counts().get(("bc7", "tiles"))
+    print(f"phase 26 tile [{card}]: phase 5's tiled golden mix {tiled_ms:.4f} ms (== golden); the per-mode kernels "
+          f"over {N_FULL} contiguous blocks of one mode average {contiguous / 19:.4f} ms (sum {contiguous:.4f} ms over "
+          f"19 modes); HBM bound {N_FULL * 33 / HBM_BYTES_PER_S * 1e3:.4f} ms; uastc_kernel_tiles<Bc7>: "
+          f"{r['registers']} registers, {r['stack']} B stack, 0 B spills, "
+          f"{kernels.tile_resident_warps('bc7')} resident warps per SM, {sass} SASS instructions")
+
+
 def sharded_phase_alone(dev, card: str) -> int:
     """`--phase 24`: the build and phase 24 on the inputs main() gives it."""
     from basisu_rs_tpu_torch.container.writer import write_uastc_basis
@@ -1278,7 +1421,7 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive the port's paths on one CUDA card (module docstring).")
-    ap.add_argument("--phase", type=int, choices=(24, 25),
+    ap.add_argument("--phase", type=int, choices=(24, 25, 26),
                     help="run only this phase (and the card facts and build)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1329,6 +1472,15 @@ def main(argv=None) -> int:
         print(f"phase 25 took {time.perf_counter() - t0:.2f} s")
         print(card)
         return 0
+    if args.phase == 26:
+        so, seconds = build.build()
+        print(f"phase 2 build: {so.name} in {seconds:.2f} s")
+        golden = np.load(FIXTURE)
+        t0 = time.perf_counter()
+        tile_phase(dev, card, golden["bc7_in"], golden["bc7_out"].view(np.uint8).reshape(-1, 16))
+        print(f"phase 26 took {time.perf_counter() - t0:.2f} s")
+        print(card)
+        return 0
 
     # ---- phase 2: build -----------------------------------------------------
     so, seconds = build.build()
@@ -1360,7 +1512,11 @@ def main(argv=None) -> int:
     require("registers" in r, "no ptxas report for the fl_div255 probe")
     print(f"  ptxas fl_div255_probe_kernel: {r['registers']} registers, {r['stack']} B stack, {r['spill_stores']} B "
           f"spill stores, {r['spill_loads']} B spill loads")
-    require(len(ptxas) == 200, f"ptxas reports {len(ptxas)} kernels, expected 200")
+    r = ptxas.get(("bc7", "tiles"), {})
+    require("registers" in r, "no ptxas report for uastc_kernel_tiles<Bc7>")
+    print(f"  ptxas uastc_kernel_tiles<Bc7>: {r['registers']} registers, {r['stack']} B stack, {r['spill_stores']} B "
+          f"spill stores, {r['spill_loads']} B spill loads")
+    require(len(ptxas) == 201, f"ptxas reports {len(ptxas)} kernels, expected 201")
     print("phase 2 ptxas json " + json.dumps({f"{t}/{m}": v for (t, m), v in sorted(ptxas.items(), key=str)}))
     sass = build.sass_counts()
     shape = {}  # (target, mode) -> (registers, resident warps per SM, SASS instructions)
@@ -1455,29 +1611,27 @@ def main(argv=None) -> int:
 
         kernels.reset_counts()
         out, err = transcode_uastc_blocks(full, t)
-        # no synchronize: the comparisons below follow the (for K1, chained)
-        # launches on the stream, so a launch that completed ahead of the one
-        # before it would show as a mismatch
-        launches = kernels.launch_counts()[t]
+        # no synchronize: the comparisons below follow the launches on the
+        # stream, so a launch that completed ahead of one before it would
+        # show as a mismatch
+        counted = check_launches(kernels, t, 1, "main path")
         plain_calls = sum(sum(c) for c in kernels.plain_call_counts().values())
         require(tuple(as_bytes(out).shape) == (N_FULL, out_bytes[t]), f"{t} full-size output shape")
         require(out.dtype == (torch.uint32 if t == "rgba" else torch.uint8), f"{t} output dtype {out.dtype}")
         require(bool(torch.equal(as_bytes(out), expected)), f"{t} full-size output differs from the tiled golden")
         require(not bool(err.any()), f"{t} full-size golden mix flagged err")
-        require(launches == [1] * 19, f"{t} launch counts {launches}, expected one per mode")
         require(plain_calls == 0, f"plain version called on the main path: {plain_calls}")
-        print(f"phase {phase} {t} main path: {N_FULL} blocks bit-exact vs tiled golden; launches per mode "
-              f"{launches}; plain-version calls {plain_calls} [{card}]")
+        print(f"phase {phase} {t} main path: {N_FULL} blocks bit-exact vs tiled golden; "
+              f"{launch_text(kernels, t, counted)}; plain-version calls {plain_calls} [{card}]")
         del out, err
 
         k_out = torch.empty(N_FULL, out_bytes[t], dtype=torch.uint8, device=dev)
         k_err = torch.empty(N_FULL, dtype=torch.bool, device=dev)
 
         def launches_alone():
-            # as the dispatch launches them: K1's chained after the first
-            for k, (m, idx) in enumerate(groups.items()):
-                kernels.mode_kernel(t, m)(full, idx, k_out, k_err, check_index=False,
-                                          chain=k > 0 and t in kernels.CHAINED)
+            # as the dispatch launches another target's
+            for m, idx in groups.items():
+                kernels.mode_kernel(t, m)(full, idx, k_out, k_err, check_index=False)
 
         k_out.zero_()
         launches_alone()
@@ -1488,6 +1642,8 @@ def main(argv=None) -> int:
         call_q1, _, call_q3 = statistics.quantiles(call_times, n=4)
         launch_ms = median_ms(launches_alone)
         launch_dev_ms = median_ms(launches_alone, preload=True)
+        tile_ms = (median_ms(lambda: kernels.tile_kernel(t)(full, k_out, k_err), preload=True)
+                   if t in kernels.TILED else None)
         mode_ms = {m: median_ms(lambda m=m, idx=idx: kernels.mode_kernel(t, m)(full, idx, k_out, k_err,
                                                                              check_index=False),
                                 preload=True)
@@ -1542,25 +1698,30 @@ def main(argv=None) -> int:
         print(f"phase {phase} {t} time [{card}]: transcode_uastc_blocks {call_ms:.4f} ms = "
               f"{mtex(N_FULL, call_ms):.1f} Mtexels/s (median of {REPS}, CUDA events; quartiles "
               f"{call_q1:.4f}-{call_q3:.4f} ms, min {min(call_times):.4f}, max {max(call_times):.4f})")
-        chained = "chained after the first, " if t in kernels.CHAINED else ""
-        print(f"phase {phase} {t} time [{card}]: 19 kernel launches alone ({chained}output bit-exact vs tiled golden "
+        print(f"phase {phase} {t} time [{card}]: 19 kernel launches alone (output bit-exact vs tiled golden "
               f"with no synchronize before the check), as called {launch_ms:.4f} ms = "
               f"{mtex(N_FULL, launch_ms):.1f} Mtexels/s; device time {launch_dev_ms:.4f} ms = "
               f"{mtex(N_FULL, launch_dev_ms):.1f} Mtexels/s; HBM bound {bound_all:.4f} ms "
               f"({block_bytes[t]} B a block at 3.35 TB/s, {100 * bound_all / launch_dev_ms:.1f}% of device time); "
-              f"the index list adds {INDEX_BYTES} B a block, {index_ms:.4f} ms at 3.35 TB/s; the unchained per-mode "
+              f"the index list adds {INDEX_BYTES} B a block, {index_ms:.4f} ms at 3.35 TB/s; the per-mode "
               f"launches below sum to {sum(mode_ms.values()):.4f} ms")
-        print(f"phase {phase} {t} time [{card}]: partition and host share of the call "
-              f"{call_ms - launch_ms:.4f} ms (call minus launches as called)")
-        print(f"phase {phase} {t} time [{card}]: plain PyTorch version, same size {plain_ms:.4f} ms = "
+        if t in kernels.TILED:
+            print(f"phase {phase} {t} time [{card}]: the call's one tile-kernel launch, device time {tile_ms:.4f} ms; "
+                  f"host share of the call {call_ms - tile_ms:.4f} ms (call minus that)")
+        else:
+            print(f"phase {phase} {t} time [{card}]: partition and host share of the call "
+                  f"{call_ms - launch_ms:.4f} ms (call minus launches as called)")
+        print(f"phase {phase} {t} time [{card}]: plain PyTorch version (partition and 19 plain calls), same size "
+              f"{plain_ms:.4f} ms = "
               f"{mtex(N_FULL, plain_ms):.1f} Mtexels/s (as called, median of {PLAIN_REPS})")
         for m in groups:
-            print(f"phase {phase} {t} mode {m:2d} [{card}]: {counts[m]} blocks, kernel device time (one plain launch) "
+            print(f"phase {phase} {t} mode {m:2d} [{card}]: {counts[m]} blocks, kernel device time (one launch) "
                   f"{mode_ms[m]:.4f} ms = {mtex(counts[m], mode_ms[m]):.1f} Mtexels/s; plain as called "
                   f"{plain_mode_ms[m]:.4f} ms = {mtex(counts[m], plain_mode_ms[m]):.1f} Mtexels/s")
         if perm_line:
             print(perm_line)
-        results[t] = dict(launches=launches, mode_ms=mode_ms, plain_mode_ms=plain_mode_ms)
+        results[t] = dict(launches=counted[0], tile_launches=counted[1], tile_ms=tile_ms, plain_ms=plain_ms,
+                          mode_ms=mode_ms, plain_mode_ms=plain_mode_ms)
 
     main_path(5, "bc7")
 
@@ -1619,9 +1780,8 @@ def main(argv=None) -> int:
         kernels.reset_counts()
         images = reader(buf)
         torch.cuda.synchronize()
-        launches = kernels.launch_counts()[t]
+        launches = launch_text(kernels, t, check_launches(kernels, t, 1, "file"))
         plain_calls = sum(sum(c) for c in kernels.plain_call_counts().values())
-        require(launches == [1] * 19, f"{t} file launch counts {launches}, expected one per mode per file")
         require(plain_calls == 0, f"plain version called on the file path: {plain_calls}")
         require(len(images) == SLICES, f"{t}: {len(images)} images")
         stride = 4 * SLICE_BLOCKS_X * 4 if t == "rgba" else out_bytes[t] * SLICE_BLOCKS_X
@@ -1650,8 +1810,8 @@ def main(argv=None) -> int:
         split["whole call"] = host_ms(lambda: reader(buf))
         file_ms[t] = split["whole call"]
         del blocks, out, err
-        print(f"phase {phase} {t} file [{card}]: {SLICES} images bit-exact (w, h, stride, data); launches per mode "
-              f"{launches}; plain-version calls {plain_calls}")
+        print(f"phase {phase} {t} file [{card}]: {SLICES} images bit-exact (w, h, stride, data); {launches}; "
+              f"plain-version calls {plain_calls}")
         print(f"phase {phase} {t} split [{card}] (host clock + sync, median of {FILE_REPS}, ms): "
               + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
               + f" = {mtex(N_FULL, split['whole call']):.1f} Mtexels/s whole call")
@@ -1725,6 +1885,7 @@ def main(argv=None) -> int:
     timed(24, lambda: sharded_phase(dev, card, full_np, full, buf, etc1s_files, endpoints, selectors, idx_np, bad))
     torch.cuda.empty_cache()
     timed(25, lambda: bench_phase(card))
+    timed(26, lambda: tile_phase(dev, card, golden_in, golden_out["bc7"]))
 
     result = {
         "kernels": [
@@ -1743,6 +1904,23 @@ def main(argv=None) -> int:
             }
             for t in TARGETS
             for m in range(19)
+        ]
+        + [
+            {
+                "name": f"uastc_kernel_tiles<{OP_NAME[t]}>",
+                "route": "cuda",
+                "source": f"basisu_rs_tpu_torch/csrc/uastc_{t}.cu",
+                "replaces": REPLACES,
+                "launches": results[t]["tile_launches"],
+                "max_abs_err": 0.0,  # phases 5 and 26 require every byte and err flag equal
+                "ms": results[t]["tile_ms"],
+                "plain_ms": results[t]["plain_ms"],
+                "bound_ms": N_FULL * block_bytes[t] / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes",
+                "library_ms": None,
+            }
+            for t in TARGETS
+            if t in kernels.TILED
         ]
         + [
             {

@@ -45,6 +45,9 @@ HOST_ENTRY = r"""
 #include "uastc_bc7_stages.cuh"
 #include "uastc_etc.cuh"
 #include "uastc_rgba.cuh"
+#include "uastc_tiles.cuh"
+
+#include <memory>
 
 template <int M> struct Bc7 {
   static constexpr int kOut = 16;
@@ -414,6 +417,58 @@ extern "C" void etc1s_host(int kind, const uint32_t* ep_tab, int n_ep, const uin
     }
   }
 }
+
+// uastc_kernel_tiles<Op>'s CTA over one tile, on the host: the load, then
+// each bucketing step for every thread in turn (a barrier between steps),
+// as the kernel runs them.
+static void tile_load(ub::TileShared& s, const uint8_t* in, int count) {
+  for (int p = 0; p < ub::kTileBlocks; ++p) {
+    uint8_t m = ub::kNoMode;
+    if (p < count) {
+      memcpy(s.rows + 4 * p, in + 16 * p, 16);
+      m = ub::tile_mode(s.rows[4 * p]);
+    }
+    s.modes[p] = m;
+  }
+  for (int t = 0; t < ub::kTileThreads; ++t) ub::tile_count(t, ub::kTileThreads, s);
+  for (int t = 0; t < ub::kTileThreads; ++t) ub::tile_scan(t, ub::kTileThreads, s);
+  for (int t = 0; t < ub::kTileThreads; ++t) ub::tile_totals(t, ub::kTileThreads, s);
+  for (int t = 0; t < ub::kTileThreads; ++t) ub::tile_starts(t, ub::kTileThreads, s);
+  for (int t = 0; t < ub::kTileThreads; ++t) ub::tile_place(t, ub::kTileThreads, s);
+}
+
+extern "C" int tile_blocks_host() { return ub::kTileBlocks; }
+
+// The bucketing of one tile of n <= kTileBlocks blocks: start[0..20], the
+// slots of every run and each round's mode; returns the tile's warp-rounds.
+extern "C" int tile_bucket_host(const uint8_t* in, int n, int32_t* start, uint16_t* slots, int32_t* round_modes) {
+  auto s = std::make_unique<ub::TileShared>();
+  tile_load(*s, in, n);
+  memcpy(start, s->start, sizeof(s->start));
+  memcpy(slots, s->slots, sizeof(uint16_t) * s->start[ub::kTileModes]);
+  const int rounds = ub::tile_rounds(*s);
+  for (int r = 0; r < rounds; ++r) round_modes[r] = ub::tile_round_mode(*s, r);
+  return rounds;
+}
+
+// A whole pass of uastc_kernel_tiles<Bc7> over n blocks: each tile in turn,
+// its warp-rounds one after another with the lanes of a round in turn, then
+// the tile's rows and err bytes stored; returns the warp-rounds.
+extern "C" long long tile_pass_host(const uint8_t* in, long long n, uint8_t* out, uint8_t* err) {
+  auto s = std::make_unique<ub::TileShared>();
+  long long total = 0;
+  for (long long base = 0; base < n; base += ub::kTileBlocks) {
+    const int count = n - base < ub::kTileBlocks ? static_cast<int>(n - base) : ub::kTileBlocks;
+    tile_load(*s, in + 16 * base, count);
+    const int rounds = ub::tile_rounds(*s);
+    for (int r = 0; r < rounds; ++r)
+      for (int lane = 0; lane < 32; ++lane) ub::tile_lane<Bc7>(*s, ub::tile_round_mode(*s, r), r, lane);
+    memcpy(out + 16 * base, s->rows, 16 * static_cast<size_t>(count));
+    memcpy(err + base, s->modes, count);
+    total += rounds;
+  }
+  return total;
+}
 """
 
 TARGET_IDS = {"bc7": 0, "astc": 1, "rgba": 2, "etc1": 3, "etc2": 4}
@@ -457,6 +512,12 @@ def host_lib(tmp_path_factory):
     lib.bc7_weights_host.argtypes = [i, i, p, ctypes.c_longlong, p, p, p, p]
     lib.zero_bits_host.restype = None
     lib.zero_bits_host.argtypes = [i, p, p, ctypes.c_longlong, p]
+    lib.tile_blocks_host.restype = ctypes.c_int
+    lib.tile_blocks_host.argtypes = []
+    lib.tile_bucket_host.restype = ctypes.c_int
+    lib.tile_bucket_host.argtypes = [p, i, p, p, p]
+    lib.tile_pass_host.restype = ctypes.c_longlong
+    lib.tile_pass_host.argtypes = [p, ctypes.c_longlong, p, p]
     return lib
 
 
@@ -609,6 +670,88 @@ def test_host_bc7_weight_word_every_pattern(host_lib, mode):
             if entry & 0x80:  # the anchor's MSB is a stored bit
                 allowed |= {a | (1 << j) for a in allowed}
         assert set(word_inv.tolist()) == allowed, f"mode {mode} pattern {pat}: invert flags {set(word_inv.tolist())}"
+
+
+# K1 in one launch (uastc_kernel_tiles<Bc7>, csrc/uastc_tiles.cuh): the
+# tile's bucketing, and a whole pass of tiles, built with g++
+
+N_TILE_MODES = 20  # the 19 UASTC modes and the invalid mode 19
+
+
+def _tile_blocks(mix, n, seed):
+    """n random blocks (random pattern fields included) whose first bytes
+    give the mix's modes: one mode; every mode, invalid included, at random;
+    or runs of one mode 1-97 blocks long.  Returns (blocks, modes)."""
+    lut = np_tables()["MODE_LUT"]
+    rng = np.random.default_rng(seed)
+    if mix == "one_mode":
+        modes = np.full(n, 7)
+    elif mix == "all_modes":
+        modes = rng.integers(0, N_TILE_MODES, n)
+        modes[: min(n, N_TILE_MODES)] = rng.permutation(N_TILE_MODES)[: min(n, N_TILE_MODES)]
+    else:
+        modes = np.repeat(rng.integers(0, N_TILE_MODES, n), rng.integers(1, 98, n))[:n]
+    blocks = rng.integers(0, 256, (n, 16), dtype=np.uint8)
+    codes = [np.array([b for b in range(256) if lut[b & 0x7F] == m], np.uint8) for m in range(N_TILE_MODES)]
+    blocks[:, 0] = [rng.choice(codes[m]) for m in modes]
+    return blocks, modes
+
+
+@pytest.mark.parametrize("mix", ["one_mode", "all_modes", "runs"])
+@pytest.mark.parametrize("size", ["1", "31", "32", "33", "T-1", "T"])
+def test_host_tile_bucketing_is_a_stable_padded_grouping(host_lib, size, mix):
+    # the four steps over one tile, each run for every thread in turn: each
+    # mode's positions in tile order, its run padded with empty slots to a
+    # multiple of 32 and starting where the last one ended, and every round
+    # given the mode of its run
+    t = host_lib.tile_blocks_host()
+    n = {"T-1": t - 1, "T": t}.get(size) or int(size)
+    blocks, modes = _tile_blocks(mix, n, 6000 + n)
+    want_start, want_slots = [], []
+    for m in range(N_TILE_MODES):
+        want_start.append(len(want_slots))
+        run = np.flatnonzero(modes == m).tolist()
+        want_slots += run + [0xFFFF] * (-len(run) % 32)
+    want_start.append(len(want_slots))
+    start = np.zeros(N_TILE_MODES + 1, np.int32)
+    slots = np.zeros(t + 32 * N_TILE_MODES, np.uint16)
+    round_modes = np.zeros(len(slots) // 32, np.int32)
+    rounds = host_lib.tile_bucket_host(np.ascontiguousarray(blocks).ctypes.data, n, start.ctypes.data,
+                                       slots.ctypes.data, round_modes.ctypes.data)
+    assert start.tolist() == want_start
+    assert rounds * 32 == want_start[-1]
+    assert slots[:rounds * 32].tolist() == want_slots
+    want_rounds = [m for m in range(N_TILE_MODES) for _ in range((want_start[m + 1] - want_start[m]) // 32)]
+    assert round_modes[:rounds].tolist() == want_rounds
+
+
+@pytest.mark.parametrize("n", [1, 33, "T-1", "2T+77"])
+def test_host_tile_pass_matches_transcode_blocks(host_lib, golden, n):
+    # a whole pass of uastc_kernel_tiles<Bc7> on the host, tile by tile and
+    # round by round through the host-built Bc7<M>, against the port's CPU
+    # path, byte for byte with the err flags: shuffled golden blocks with
+    # random blocks of every mode (the invalid mode and pattern indices
+    # out of range included), over a ragged last tile
+    from basisu_rs_tpu_torch.ops.dispatch import transcode_blocks
+
+    t = host_lib.tile_blocks_host()
+    n = {"T-1": t - 1, "2T+77": 2 * t + 77}.get(n, n)
+    rng = np.random.default_rng(7000 + n)
+    noise, _ = _tile_blocks("all_modes", n, 7100 + n)
+    blocks = np.where(rng.random(n)[:, None] < 0.75, golden["bc7_in"][rng.integers(0, len(golden["bc7_in"]), n)],
+                      noise)
+    blocks = np.ascontiguousarray(blocks)
+    out = np.zeros((n, 16), np.uint8)
+    err = np.zeros(n, np.uint8)
+    rounds = host_lib.tile_pass_host(blocks.ctypes.data, n, out.ctypes.data, err.ctypes.data)
+    want, want_err = transcode_blocks(torch.from_numpy(blocks), "bc7")
+    np.testing.assert_array_equal(out, want.numpy())
+    np.testing.assert_array_equal(err.astype(bool), want_err.numpy())
+    if n > 1000:  # the mix holds flagged blocks and others
+        assert want_err.any() and not want_err.all()
+    lut = np_tables()["MODE_LUT"]
+    counts = [np.bincount(lut[blocks[a : a + t, 0] & 0x7F], minlength=N_TILE_MODES) for a in range(0, n, t)]
+    assert rounds == sum(int(np.sum(-(-c // 32))) for c in counts)  # every tile's padded runs, in whole warps
 
 
 def test_host_remove_zero_inverts_insert_zero(host_lib):

@@ -118,36 +118,79 @@ def test_host_library_raises_on_failed_build(tmp_path):
 
 
 @pytest.mark.parametrize("target", TARGETS)
-def test_chain_only_where_the_target_has_a_chained_launch(golden, target):
-    # chain=True names K1's chained launch; a target without one refuses it
-    # before anything runs, and on the CPU K1's chained call is the plain one
-    blocks, out, err = _args(golden, target)
-    kernels.reset_counts()
-    if target in kernels.CHAINED:
-        kernels.mode_kernel(target, 3)(blocks, None, out, err, chain=True)
-        np.testing.assert_array_equal(out.numpy(), plain(target, 3, blocks.numpy())[0])
-        assert kernels.plain_call_counts()[target][3] == 1
-    else:
-        with pytest.raises(ValueError, match="cannot be chained"):
-            kernels.mode_kernel(target, 3)(blocks, None, out, err, chain=True)
-        assert bool((out == 0xAB).all()) and kernels.plain_call_counts()[target][3] == 0
-    assert kernels.CHAINED == frozenset(build.LAUNCH_CHAINED) == {"bc7"}
-
-
-@pytest.mark.parametrize("target", TARGETS)
 def test_dispatch_chains_each_launch_after_the_first(golden, target, monkeypatch):
-    # the dispatch's launch of each present mode: the first plain, each
-    # later one chained for the targets in CHAINED, none for the others
+    # the dispatch's launches (on the CPU, BC7's through the tile kernel's
+    # plain path): one a present mode, in mode order, each a plain launch
+    # (the kernel wrappers chain none)
     from basisu_rs_tpu_torch.ops import dispatch
 
     calls = []
 
-    def fake(self, blocks, index=None, out=None, err=None, check_index=True, chain=False):
-        calls.append((self.mode, chain))
+    def fake(self, blocks, index=None, out=None, err=None, check_index=True):
+        calls.append(self.mode)
 
     monkeypatch.setattr(kernels.ModeKernel, "__call__", fake)
     blocks = torch.from_numpy(np.ascontiguousarray(golden["bc7_in"]))
     dispatch.transcode_blocks(blocks, target)
-    modes = sorted({m for m, _ in calls})
-    assert [m for m, _ in calls] == modes and len(modes) > 2
-    assert [c for _, c in calls] == [False] + [target in kernels.CHAINED] * (len(calls) - 1)
+    assert calls == sorted(set(calls)) and len(calls) > 2
+
+
+def _tile_args(golden):
+    """Golden blocks in a seeded random order with an invalid-mode block."""
+    rng = np.random.default_rng(23)
+    blocks = golden["bc7_in"][rng.integers(0, len(golden["bc7_in"]), 300)]
+    blocks[17, 0] = 69  # MODE_LUT[69] = 19, the invalid mode
+    return torch.from_numpy(np.ascontiguousarray(blocks))
+
+
+@pytest.mark.parametrize("case", ["blocks_dtype", "blocks_width", "blocks_strided", "out_shape", "err_dtype"])
+def test_tile_wrapper_rejects_bad_arguments(golden, case):
+    # the tile kernel's wrapper checks its arguments as ModeKernel does,
+    # before anything runs
+    blocks = _tile_args(golden)
+    out = torch.full((blocks.shape[0], 16), 0xAB, dtype=torch.uint8)
+    err = torch.zeros(blocks.shape[0], dtype=torch.bool)
+    if case == "blocks_dtype":
+        blocks = blocks.to(torch.int16)
+    elif case == "blocks_width":
+        blocks = blocks[:, :8].contiguous()
+    elif case == "blocks_strided":
+        blocks = blocks[::2]
+        out, err = out[::2].contiguous(), err[::2].contiguous()
+    elif case == "out_shape":
+        out = out[:-1]
+    else:
+        err = err.to(torch.uint8)
+    kernels.reset_counts()
+    with pytest.raises(ValueError):
+        kernels.tile_kernel("bc7")(blocks, out, err)
+    assert sum(kernels.plain_call_counts()["bc7"]) == 0
+    if out.dtype == torch.uint8:
+        assert bool((out == 0xAB).all())
+
+
+def test_tile_wrapper_takes_the_plain_path_on_the_cpu(golden):
+    # a CPU tensor: the dispatch's partition and one plain call a present
+    # mode, no launch; the invalid block's row zero with err, the golden
+    # blocks' rows their golden outputs; an empty batch does nothing
+    from basisu_rs_tpu_torch.ops.dispatch import block_modes
+
+    blocks = _tile_args(golden)
+    kernels.reset_counts()
+    out, err = kernels.tile_kernel("bc7")(blocks)
+    assert kernels.tile_launch_counts() == {"bc7": 0} and sum(map(sum, kernels.launch_counts().values())) == 0
+    assert sum(kernels.plain_call_counts()["bc7"]) == len(set(block_modes(blocks).tolist()) - {19})
+    assert err.tolist() == [i == 17 for i in range(blocks.shape[0])]
+    assert not bool(out[17].any())
+    gold = {bytes(b): o for b, o in zip(golden["bc7_in"], golden["bc7_out"].view(np.uint8).reshape(-1, 16))}
+    rows = [i for i in range(blocks.shape[0]) if i != 17]
+    np.testing.assert_array_equal(out.numpy()[rows], [gold[bytes(blocks[i].numpy())] for i in rows])
+    empty_out, empty_err = kernels.tile_kernel("bc7")(blocks[:0])
+    assert empty_out.shape == (0, 16) and empty_err.shape == (0,)
+    assert kernels.TILED == frozenset(build.LAUNCH_TILES) == {"bc7"}
+
+
+def test_tile_wrapper_refuses_a_device_without_its_kernel():
+    blocks = torch.zeros(4, 16, dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="no bc7 kernel for device meta"):
+        kernels.tile_kernel("bc7")(blocks)

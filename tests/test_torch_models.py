@@ -48,7 +48,28 @@ def test_uastc_transcoder_matches_golden_and_jax_dtypes(golden, target):
     p_out, p_err = tr.transcode(one)
     assert (p_out.dtype, p_out.shape, p_err.dtype, p_err.shape) == (j_out.dtype, j_out.shape, j_err.dtype, j_err.shape)
     np.testing.assert_array_equal(p_out, j_out)
-    assert set(tr.profiler.stats) == {"host/partition", "device/dispatch", "host/gather"}
+    assert set(tr.profiler.stats) == {"host/copy", "device/dispatch", "host/gather"}
+
+
+@pytest.mark.parametrize("target", TARGETS)
+def test_uastc_transcoder_leaves_the_path_to_the_dispatch(golden, target, monkeypatch):
+    # one transcode_shards call a batch, inside "device/dispatch" after the
+    # copy: which path a target takes (BC7's tile kernel, another target's
+    # partition) is ops/dispatch.py's alone
+    tr = UastcTranscoder(target, device="cpu")
+    seen = []
+
+    def spy(shards, t, out_device):
+        seen.append(([s.shape for s in shards], t, out_device, {k: v.calls for k, v in tr.profiler.stats.items()}))
+        return real(shards, t, out_device)
+
+    real = tmod.transcode_shards
+    monkeypatch.setattr(tmod, "transcode_shards", spy)
+    out, err = tr.transcode(golden["bc7_in"])
+    n = len(golden["bc7_in"])
+    assert seen == [([(n, 16)], target, torch.device("cpu"), {"host/copy": 1})]
+    np.testing.assert_array_equal(out, _golden_out(golden, target))
+    assert not err.any()
 
 
 @pytest.mark.parametrize("target", ("bc7", "rgba"))

@@ -194,7 +194,7 @@ def test_stages_are_spans_of_their_names(recorder, golden):
     t.transcode(golden["bc7_in"][:64])
     rec = recorder.records()
     roots = [s.name for s in _by_start(rec) if s.parent is None]
-    assert roots == ["host/partition", "device/dispatch", "host/gather"]
+    assert roots == ["host/copy", "device/dispatch", "host/gather"]
     assert {s.name for s in rec.spans if s.parent is not None} == {"dispatch.groups", "dispatch.bincount",
                                                                      "dispatch.counts", "dispatch.launch"}
     assert t.profiler.stats["device/dispatch"].calls == 1
@@ -473,3 +473,53 @@ def test_cuda_marks_are_read_once_and_reused(recorder, monkeypatch):
     assert recorder.records().total("partition_device_ns") == 3 * 250_000
     profiling.disable()
     assert profiling.cuda_mark(card) is None
+
+
+def test_device_counters_are_read_into_their_counter(recorder, monkeypatch):
+    """A kernel's count on the card (a stand-in int64 [1] tensor): records()
+    reads it into its counter outside any request and zeroes it, so a
+    second read adds nothing; clear() zeroes it too.  Without a card, or
+    with the recorder off, there is no counter to add to."""
+    counter = torch.tensor([96], dtype=torch.int64)
+    monkeypatch.setattr(profiling, "_DEVICE_COUNTERS", {("tile_warp_rounds", torch.device("cuda", 0)): counter})
+    assert recorder.records().counts == {(None, "tile_warp_rounds"): 96} and int(counter) == 0
+    counter += 32
+    assert recorder.records().total("tile_warp_rounds") == 128
+    counter += 5
+    recorder.clear()
+    assert int(counter) == 0 and recorder.records().counts == {}
+    assert profiling.device_counter("tile_warp_rounds", torch.device(CPU)) is None
+    profiling.disable()
+    assert profiling.device_counter("tile_warp_rounds", torch.device("cuda", 0)) is None
+
+
+@pytest.mark.parametrize("rounds, expected", [(40, 100 * 1000 / (32 * 40)), (0, None)])
+def test_tile_lane_pct_reads_the_warp_rounds(monkeypatch, rounds, expected):
+    """kernels.tile_lane_pct: the window's blocks over 32 lanes a warp-round
+    of the counter `tile_warp_rounds`; nothing where no round was counted
+    (the CPU, or a program without the tile kernel) or without records."""
+    from benchmark import core
+
+    try:
+        metric = _metric("kernels.tile_lane_pct")
+        assert profiling._ON
+        counts = {(1, "launches"): 1, (None, "tile_warp_rounds"): rounds}
+        spans = [SpanRecord("dispatch.launch", 0, MS, 1, None, 1, 1)]
+        monkeypatch.setattr(profiling, "records", lambda: Records(spans, counts))
+        record = core.Record(config={}, traffic={}, calls=4, blocks=1000)
+        assert metric.read(record) == (pytest.approx(expected) if expected else None)
+        assert metric.CPU_READS == "none"
+        monkeypatch.delattr(profiling, "records")
+        assert _metric("kernels.tile_lane_pct").read(record) is None
+    finally:
+        profiling.disable()
+        profiling.clear()
+
+
+def test_tile_lane_pct_is_in_the_benchmark_spec():
+    from benchmark import core
+
+    spec = core.load_json(core.ROOT / "BENCHMARK.json")
+    (m,) = [m for m in spec["per_layer"] if m["name"] == "kernels.tile_lane_pct"]
+    assert (m["layer"], m["moves"], m["source"], m["workloads"]) == (
+        "kernels", "resident_gtexels_s", "program_counter", ["uastc-bc7.resident-2e23"])
